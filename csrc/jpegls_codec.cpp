@@ -23,7 +23,7 @@
 //     (data/jpegls.py::jpeg_ls_encode — same contexts/k/mapping/stuffing);
 //     the hot path for building 16-bit (FLAG_U16) MIS stores, where the
 //     pure-Python encoder is ~2 orders of magnitude too slow for the 1M
-//     ingest (BASELINE.md).
+//     ingest.
 
 #include <cstdint>
 #include <cstring>
@@ -169,8 +169,7 @@ struct BitReader {
 // bits, so for the overwhelmingly common short codes the unary run AND the
 // k remainder bits both sit in the accumulator already — one clz + one
 // shift/mask extracts the whole codeword, replacing the per-bit loop +
-// second refill-checked read (round-4 pass; ~1.3x on noisy CT content,
-// BASELINE.md loader table). Long runs / escape codes / exhausted windows
+// second refill-checked read. Long runs / escape codes / exhausted windows
 // fall back to the original exact path with the reader state untouched.
 static inline int64_t golomb_decode(BitReader& br, int k, int limit, int qbpp,
                                     int* err) {

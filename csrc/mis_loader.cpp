@@ -13,7 +13,7 @@
 //   - emit fixed-shape uint8 batches (B, H, W, C) + int32 labels straight
 //     into a caller buffer that Python hands to jax.device_put.
 // Randomized cropping/augmentation is deliberately NOT here — it runs on
-// the TPU (ops/augment.py); the host's only job is bytes → pixels.
+// the device (ops/augment.py); the host's only job is bytes → pixels.
 //
 // Build: g++ -O3 -march=native -shared -fPIC mis_loader.cpp \
 //            -ljpeg -lpng -lz -pthread -o libmisloader.so
@@ -35,8 +35,15 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
+// JPEG and PNG payloads need libjpeg and libpng. A build without their
+// headers defines MIS_NO_JPEG / MIS_NO_PNG; those codecs then fail with
+// kErrCodecMissing, and RAW and JPEG-LS stores still load.
+#ifndef MIS_NO_JPEG
 #include <jpeglib.h>
+#endif
+#ifndef MIS_NO_PNG
 #include <png.h>
+#endif
 #include <csetjmp>
 
 // JPEG-LS codec, linked into the same shared object (csrc/jpegls_codec.cpp)
@@ -56,6 +63,7 @@ constexpr uint8_t kCodecRaw = 0;
 constexpr uint8_t kCodecJpeg = 1;
 constexpr uint8_t kCodecPng = 2;
 constexpr uint8_t kCodecJls = 3;   // JPEG-LS (csrc/jpegls_codec.cpp)
+constexpr int kErrCodecMissing = -10;  // codec library not compiled in
 constexpr uint32_t kFlagU16 = 1;   // header flag: samples are uint16 LE
 
 #pragma pack(push, 1)
@@ -170,6 +178,7 @@ struct Store {
 // decode helpers
 // ---------------------------------------------------------------------------
 
+#ifndef MIS_NO_JPEG
 struct JpegErr {
   jpeg_error_mgr mgr;
   jmp_buf jump;
@@ -209,7 +218,13 @@ int decode_jpeg(const uint8_t* buf, size_t len, std::vector<uint8_t>& tmp,
   jpeg_destroy_decompress(&cinfo);
   return 0;
 }
+#else
+int decode_jpeg(const uint8_t*, size_t, std::vector<uint8_t>&, int, int*, int*) {
+  return kErrCodecMissing;
+}
+#endif  // MIS_NO_JPEG
 
+#ifndef MIS_NO_PNG
 struct PngReadState {
   const uint8_t* data;
   size_t size;
@@ -309,6 +324,14 @@ int decode_png16(const uint8_t* buf, size_t len, std::vector<uint16_t>& tmp,
   png_destroy_read_struct(&png, &info, nullptr);
   return 0;
 }
+#else
+int decode_png(const uint8_t*, size_t, std::vector<uint8_t>&, int, int*, int*) {
+  return kErrCodecMissing;
+}
+int decode_png16(const uint8_t*, size_t, std::vector<uint16_t>&, int, int*, int*) {
+  return kErrCodecMissing;
+}
+#endif  // MIS_NO_PNG
 
 // JPEG-LS → uint16 plane(s); the probe supplies dims so the output buffer
 // is exact. Precision <= 16; u8 callers narrow after checking precision.
@@ -383,7 +406,7 @@ void place(const T* src, int sh, int sw, T* out, int oh, int ow, int c) {
 // Half-pixel convention matching the device resampler exactly
 // (ops/augment.py::_resize_matrix): src = start + (i+0.5)*size/out - 0.5,
 // clipped, 2-tap lerp; a horizontal flip mirrors the OUTPUT coordinate
-// (ops/pallas_augment.py::_interp_rows mirror=true). Output rounds to
+// (ops/augment.py::_flip_cols reverses R_x's rows). Output rounds to
 // nearest uint8 — same quantization the reference's FFCV/torchvision
 // uint8 pipeline applies after RandomResizedCrop.
 template <typename T>
@@ -463,6 +486,7 @@ void clamp_window(const float* p, int h, int w,
 // (jpeg_crop_scanline) cuts Huffman+IDCT work accordingly. Outputs the
 // full image dims plus the decoded region's offset/size; pixels land in
 // tmp as a (bh, bw, c) block.
+#ifndef MIS_NO_JPEG
 int decode_jpeg_region(const uint8_t* buf, size_t len, std::vector<uint8_t>& tmp,
                        int want_c, const float* params, int views,
                        int* full_h, int* full_w,
@@ -527,6 +551,12 @@ int decode_jpeg_region(const uint8_t* buf, size_t len, std::vector<uint8_t>& tmp
   *bh = y_hi - y_lo;
   return 0;
 }
+#else
+int decode_jpeg_region(const uint8_t*, size_t, std::vector<uint8_t>&, int, const float*, int,
+                       int*, int*, int*, int*, int*, int*) {
+  return kErrCodecMissing;
+}
+#endif  // MIS_NO_JPEG
 
 // decode the payload of record r into the thread-local tmp (h*w*oc samples
 // of T); shared codec dispatch for both fetch paths. T=uint8_t accepts
@@ -862,7 +892,7 @@ int mis_sample_u16(void* store) {
 // Host-side RandomResizedCrop fast path: decode each sample once at native
 // resolution, then emit `views` bilinear crop-resized views per sample.
 //
-// Rationale (BASELINE.md "store mode"): shipping V pre-cropped views of
+// Rationale: shipping V pre-cropped views of
 // vh*vw*oc bytes instead of one full oh*ow*oc image cuts H2D bytes ~2x for
 // the canonical 256^2 store -> 2x112^2 SSL views — the win that matters on
 // narrow host<->device links where the DMA, not decode, is the bottleneck.

@@ -1,4 +1,9 @@
-"""Orbax checkpointing + the SSL→segmentation encoder handoff.
+"""Checkpointing + the SSL→segmentation encoder handoff.
+
+A checkpoint is ``<dir>/<step>/state.npz``: the state's leaves, each keyed by
+its pytree key path (``.params['encoder']['conv1']['kernel']``), written to
+a temporary file and renamed into place. Restoring onto a target puts every
+leaf on the target leaf's sharding; restoring without one gives nested dicts.
 
 The reference delegates checkpointing to Lightning defaults (SURVEY §5.4)
 and — notably — never loads the BYOL encoder into the U-Net
@@ -13,37 +18,86 @@ but the U-Net takes 1-channel CT slices.
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
-import orbax.checkpoint as ocp
+import numpy as np
+
+_STATE_FILE = "state.npz"
+_PATH_TOKEN = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
+
+
+def _flatten(state: Any) -> Dict[str, np.ndarray]:
+    return {jax.tree_util.keystr(path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(state)[0]}
+
+
+def _load(path: str) -> Dict[str, np.ndarray]:
+    """{key path: leaf} of a checkpoint."""
+    with np.load(os.path.join(os.path.abspath(path), _STATE_FILE)) as z:
+        return {k: z[k] for k in z.files}
 
 
 def save_checkpoint(ckpt_dir: str, state: Any, step: int) -> str:
     """Save a pytree checkpoint at ``<ckpt_dir>/<step>``.
 
-    COLLECTIVE in multiprocess runs: orbax's save path issues cross-process
-    barriers (it allgathers inside ``Checkpointer.save``), so when
-    ``jax.process_count() > 1`` EVERY process must call this at the same
-    program point, passing the global ``jax.Array`` state (not a
-    ``device_get`` copy). Orbax enforces the single-writer discipline
-    internally (primary host writes replicated chunks)."""
+    COLLECTIVE in multiprocess runs: every process must call this at the
+    same program point with the global ``jax.Array`` state. The state is
+    gathered onto every process, process 0 writes it, and all processes
+    leave together."""
     path = os.path.join(os.path.abspath(ckpt_dir), str(step))
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(path, state, force=True)
-    ckptr.wait_until_finished()
+    multi = jax.process_count() > 1
+    if multi:
+        from jax.experimental import multihost_utils
+
+        state = multihost_utils.process_allgather(state, tiled=True)
+    if jax.process_index() == 0:
+        arrays = _flatten(jax.device_get(state))
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, f".{_STATE_FILE}.tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, os.path.join(path, _STATE_FILE))
+    if multi:
+        multihost_utils.sync_global_devices(f"save_checkpoint {path}")
     return path
 
 
+def _nest(leaves: Dict[str, Any]) -> Dict[Any, Any]:
+    """Key-path strings back to nested dicts (attribute names and dict keys
+    become string keys, sequence indices int keys)."""
+    root: Dict[Any, Any] = {}
+    for name, value in leaves.items():
+        keys = [a or b or int(c) for a, b, c in _PATH_TOKEN.findall(name)]
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = value
+    return root
+
+
 def restore_checkpoint(path: str, target: Optional[Any] = None) -> Any:
-    """Restore a pytree checkpoint. ``target`` (abstract or concrete pytree)
-    pins structure/dtypes/shardings when given."""
-    ckptr = ocp.StandardCheckpointer()
+    """Restore a pytree checkpoint. With ``target`` (a pytree of arrays or
+    ``jax.ShapeDtypeStruct``s), the result has its structure, dtypes and
+    shardings; without one, nested dicts of host arrays."""
+    leaves = _load(path)
     if target is None:
-        return ckptr.restore(os.path.abspath(path))
-    abstract = jax.tree.map(ocp.utils.to_shape_dtype_struct, target)
-    return ckptr.restore(os.path.abspath(path), abstract)
+        return _nest(leaves)
+    flat, treedef = jax.tree_util.tree_flatten_with_path(target)
+    out = []
+    for p, ref in flat:
+        name = jax.tree_util.keystr(p)
+        if name not in leaves:
+            raise KeyError(f"checkpoint {path} has no leaf {name}")
+        value = leaves[name]
+        if value.shape != ref.shape:
+            raise ValueError(f"{name}: checkpoint shape {value.shape} != target {ref.shape}")
+        value = value.astype(ref.dtype)
+        sharding = getattr(ref, "sharding", None)
+        out.append(jax.device_put(value, sharding) if sharding is not None else jnp.asarray(value))
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:

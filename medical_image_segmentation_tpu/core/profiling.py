@@ -1,5 +1,5 @@
 """Profiling hooks (SURVEY §5.1 — the reference has none; we add the
-TPU-native versions: `jax.profiler` traces + per-stage wall timers).
+JAX versions: `jax.profiler` traces + per-stage wall timers).
 
 Usage:
     with trace_if("/tmp/jax-trace", enabled=args.profile):
@@ -112,7 +112,7 @@ class StepProfiler:
             import jax
 
             if fence is not None:
-                float(fence)  # host fence so the trace captures real work
+                jax.block_until_ready(fence)  # the trace captures the work
             jax.profiler.stop_trace()
             self.on = False
             print("profiler trace written", file=sys.stderr)

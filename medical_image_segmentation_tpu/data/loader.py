@@ -8,7 +8,7 @@ Pipeline per batch:
     → jax.device_put onto the mesh (batch-dim sharded) — double-buffered.
 
 Augmentation is NOT here: raw uint8 batches go to the device and the
-Pallas/MXU pipeline (ops/augment.py) crops/flips/normalizes on-chip, so the
+matmul pipeline (ops/augment.py) crops/flips/normalizes on the device, so the
 host's per-image work is exactly one decode + one DMA.
 
 Ordering modes mirror FFCV's (`lightning_module.py:141-151`):

@@ -4,8 +4,8 @@ The reference stores its curated dataset as FFCV `.beton` files written by
 `ffcv.writer.DatasetWriter` (`medical_image_segmentation/analyze_data/
 create_ffcv_subset.py:100-108`) and memory-maps them at train time with
 `os_cache=True` (`train/data_loaders/lightning_module.py:141-151`). The MIS
-store provides the same capability with a layout designed for the TPU-host
-loader:
+store provides the same capability with a layout designed for the
+host loader:
 
     [ header | index table | data region ]
 
@@ -24,7 +24,7 @@ large images and keep small ones raw (FFCV's RGBImageField behavior).
 bit depth of CT/MR DICOM pixel data. The reference's FFCV path squashes to
 uint8 RGB at dataset-build time (`create_ffcv_subset.py:36-65`), losing the
 HU dynamic range that window/level augmentation operates on; a u16 store
-preserves it end-to-end (decode → device → Pallas/XLA windowing). u16
+preserves it end-to-end (decode → device → XLA windowing). u16
 stores are single-channel (radiology grayscale); valid codecs are RAW
 (little-endian uint16), PNG (16-bit grayscale), and JLS (our from-scratch
 ITU-T T.87 JPEG-LS codec — the DICOM-native lossless codec for exactly
@@ -120,3 +120,15 @@ class SampleRecord:
 
 
 assert struct.calcsize(_RECORD_FMT) == RECORD_SIZE
+
+
+def import_cv2(purpose: str):
+    """OpenCV, or an ImportError that names it and what needed it (the
+    JPEG/PNG codecs; RAW and JPEG-LS payloads need no OpenCV)."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"OpenCV (the cv2 module, e.g. opencv-python-headless) is needed to {purpose}; "
+            "RAW and JPEG-LS store payloads work without it") from e
+    return cv2

@@ -1,8 +1,13 @@
 """ctypes binding + on-demand build of the C++ MIS loader.
 
-The shared object is compiled once per machine from ``csrc/mis_loader.cpp``
-(g++, links libjpeg-turbo/libpng/zlib) into a cache directory; callers fall
-back to the pure-Python ``StoreReader`` when no toolchain is available.
+The shared object is compiled from ``csrc/*.cpp`` (g++, zlib, and libjpeg /
+libpng where their headers are installed) into a cache directory, under a
+key made from the sources, the compiler command, the compiler's version and
+the host CPU, so a library built on one machine is never loaded on another.
+A build without libjpeg or libpng still reads RAW and JPEG-LS stores; JPEG
+or PNG payloads then fail with a message that names the missing library.
+``Loader`` falls back to the pure-Python ``StoreReader`` when the build
+fails, and prints why.
 """
 
 from __future__ import annotations
@@ -36,23 +41,81 @@ def _cache_dir() -> str:
     return d
 
 
-def _build() -> Optional[str]:
+# error code of a payload whose codec library was not compiled in
+# (kErrCodecMissing in csrc/mis_loader.cpp)
+ERR_CODEC_MISSING = -10
+
+
+def _has_header(cxx: str, header: str) -> bool:
+    src = f"#include <cstdio>\n#include <{header}>\n"
+    try:
+        r = subprocess.run([cxx, "-E", "-x", "c++", "-", "-o", os.devnull], input=src.encode(),
+                           capture_output=True, timeout=60)
+    except (subprocess.SubprocessError, FileNotFoundError):
+        return False
+    return r.returncode == 0
+
+
+def _host_cpu() -> str:
+    """The CPU model and feature flags (``-march=native`` compiles for them)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            lines = [ln for ln in f.read().splitlines()
+                     if ln.startswith(("model name", "flags", "Features"))]
+        return "\n".join(sorted(set(lines)))
+    except OSError:
+        import platform
+
+        return platform.processor() or platform.machine()
+
+
+def build_command(out: str, cxx: str = "g++", jpeg: bool = True, png: bool = True) -> list:
+    """The compiler command for the loader library at ``out``."""
+    defines, libs = [], []
+    if jpeg:
+        libs.append("-ljpeg")
+    else:
+        defines.append("-DMIS_NO_JPEG")
+    if png:
+        libs.append("-lpng")
+    else:
+        defines.append("-DMIS_NO_PNG")
+    return [cxx, "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", *defines,
+            *_SRCS, *libs, "-lz", "-pthread", "-o", out]
+
+
+def build_key(cmd: list, compiler_version: str, cpu: str) -> str:
+    """Cache key of a build: the sources, the command, the compiler and the CPU."""
     h = hashlib.sha256()
     for src in _SRCS:
         with open(src, "rb") as f:
             h.update(f.read())
-    digest = h.hexdigest()[:16]
-    out = os.path.join(_cache_dir(), f"libmisloader-{digest}.so")
+    for part in (" ".join(cmd[:-1]), compiler_version, cpu):  # cmd[-1] is the output path
+        h.update(b"\0" + part.encode())
+    return h.hexdigest()[:16]
+
+
+def _build() -> Optional[str]:
+    cxx = os.environ.get("CXX", "g++")
+    try:
+        version = subprocess.run([cxx, "--version"], capture_output=True, timeout=60).stdout.decode()
+    except (subprocess.SubprocessError, FileNotFoundError) as e:
+        print(f"mis_loader native build failed: no C++ compiler ({e})", file=sys.stderr)
+        return None
+    jpeg, png = _has_header(cxx, "jpeglib.h"), _has_header(cxx, "png.h")
+    key = build_key(build_command("", cxx, jpeg, png), version, _host_cpu())
+    out = os.path.join(_cache_dir(), f"libmisloader-{key}.so")
     if os.path.exists(out):
         return out
+    missing = [name for name, ok in (("libjpeg", jpeg), ("libpng", png)) if not ok]
+    if missing:
+        print(f"mis_loader: building without {' and '.join(missing)} (headers not found); "
+              "stores of those codecs will not load natively", file=sys.stderr)
     tmp = f"{out}.{os.getpid()}.tmp"  # pid-unique: concurrent builders must
     # not interleave writes into one -o target before the atomic publish
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        *_SRCS, "-ljpeg", "-lpng", "-lz", "-pthread", "-o", tmp,
-    ]
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        subprocess.run(build_command(tmp, cxx, jpeg, png), check=True, capture_output=True,
+                       timeout=300)
     except (subprocess.SubprocessError, FileNotFoundError) as e:
         stderr = getattr(e, "stderr", b"") or b""
         print(f"mis_loader native build failed: {e}\n{stderr.decode()[:2000]}", file=sys.stderr)
@@ -170,6 +233,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _LIB
 
 
+def _fetch_error(fn: str, rc: int) -> str:
+    if rc == ERR_CODEC_MISSING:
+        return (f"{fn}: the store holds JPEG or PNG payloads, but the native loader "
+                "was built without libjpeg/libpng (their headers were not found); "
+                "install them, or write the store with the raw or JPEG-LS codec")
+    return f"{fn} error {rc}"
+
+
 class NativeStore:
     """Thin RAII wrapper over the C++ store handle."""
 
@@ -222,7 +293,7 @@ class NativeStore:
             num_threads,
         )
         if rc != 0:
-            raise IOError(f"mis_fetch error {rc}")
+            raise IOError(_fetch_error("mis_fetch", rc))
         return out, labels
 
     def fetch_views(
@@ -273,7 +344,7 @@ class NativeStore:
             num_threads,
         )
         if rc != 0:
-            raise IOError(f"mis_fetch_views error {rc}")
+            raise IOError(_fetch_error("mis_fetch_views", rc))
         return out, labels
 
     def close(self):

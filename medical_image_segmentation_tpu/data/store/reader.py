@@ -20,6 +20,7 @@ from medical_image_segmentation_tpu.data.store.format import (
     RECORD_SIZE,
     SampleRecord,
     StoreHeader,
+    import_cv2,
 )
 
 
@@ -68,8 +69,7 @@ class StoreReader:
                 raise ValueError(f"sample {i}: JLS precision mismatch "
                                  f"({img.dtype} payload in a {np.dtype(dtype)} store)")
             return img
-        import cv2
-
+        cv2 = import_cv2("decode JPEG/PNG store payloads")
         buf = np.frombuffer(self._mm, np.uint8, r.length, r.offset)
         img = cv2.imdecode(buf, cv2.IMREAD_UNCHANGED)
         if img is None:

@@ -26,6 +26,7 @@ from medical_image_segmentation_tpu.data.store.format import (
     RECORD_SIZE,
     SampleRecord,
     StoreHeader,
+    import_cv2,
 )
 
 
@@ -43,7 +44,7 @@ def _encode(img: np.ndarray, codec: int, quality: int) -> bytes:
         # decoders derive the output dtype from the stream's precision, so
         # a dark u16 slice must still round-trip as uint16
         return jpeg_ls_encode(img, near=0, precision=16 if img.dtype == np.uint16 else 8)
-    import cv2
+    cv2 = import_cv2("encode JPEG/PNG store payloads")
 
     if codec == CODEC_JPEG and img.dtype != np.uint8:
         raise ValueError("JPEG store payloads are 8-bit; use PNG/JLS/RAW for uint16")
@@ -68,7 +69,7 @@ def _maybe_resize(img: np.ndarray, max_resolution: Optional[int]) -> np.ndarray:
     m = max(h, w)
     if m <= max_resolution:
         return img
-    import cv2
+    cv2 = import_cv2("resize images for a store")
 
     scale = max_resolution / m
     return cv2.resize(img, (int(round(w * scale)), int(round(h * scale))), interpolation=cv2.INTER_AREA)

@@ -41,7 +41,7 @@ def knn_predict(
 ) -> jax.Array:
     """Soft-voting weighted KNN class scores (B, num_classes)."""
     features = _l2_normalize(features.astype(jnp.float32))
-    sim = features @ bank.T.astype(jnp.float32)            # (B, N) — MXU
+    sim = features @ bank.T.astype(jnp.float32)            # (B, N)
     k = min(k, bank.shape[0])
     sim_k, idx_k = jax.lax.top_k(sim, k)                    # (B, k)
     weights = jnp.exp(sim_k / temperature)

@@ -15,18 +15,18 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Dict
 
-import flax.linen as nn
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
+
+from medical_image_segmentation_tpu.core.struct import PyTreeNode
+from medical_image_segmentation_tpu.models import nn
 
 
 class _Head(nn.Module):
     num_classes: int
     dropout: float = 0.0
 
-    @nn.compact
     def __call__(self, x, train: bool = True):
         x = x.reshape((x.shape[0], -1))
         if self.dropout > 0:
@@ -34,7 +34,7 @@ class _Head(nn.Module):
         return nn.Dense(self.num_classes, param_dtype=jnp.float32)(x)
 
 
-class ProbeState(flax.struct.PyTreeNode):
+class ProbeState(PyTreeNode):
     params: Any
     opt_state: Any
     rng: jax.Array

@@ -108,7 +108,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="shrink all knobs for a minutes-long synthetic-data "
                          "run (what tests/test_parity.py executes)")
     ap.add_argument("--fp32", action="store_true",
-                    help="fp32 end-to-end (CPU smoke runs; TPU default bf16)")
+                    help="fp32 end-to-end (CPU smoke runs; default bf16)")
     return ap.parse_args(argv)
 
 

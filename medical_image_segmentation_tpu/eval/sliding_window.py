@@ -6,7 +6,7 @@ arbitrarily large slices by tiling overlapping windows, batching them
 through the jitted forward, and blending logits back with a smooth
 center-peaked weight map (so window-edge artifacts cancel).
 
-TPU-first: window extraction, the model forward, and the scatter-blend are
+Design: window extraction, the model forward, and the scatter-blend are
 three jitted programs with static shapes — each compiled once regardless of
 image size class; the blend is a `fori_loop` of dynamic-slice updates.
 """
@@ -143,7 +143,7 @@ def _make_fused_predictor(
     baked into a single jitted program: a `lax.scan` over window batches
     whose body extracts, forwards, and Hann-scatter-blends on device. One
     dispatch per volume; the latency overhead of program launches and
-    coordinate uploads (expensive over remote-device links) disappears.
+    coordinate uploads disappears.
 
     Logits and blend weights accumulate in ONE (..., K+1)-channel canvas so
     each window costs a single dynamic-slice/update pair instead of two.

@@ -22,10 +22,10 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from medical_image_segmentation_tpu.models import nn
 from medical_image_segmentation_tpu.models.mlp import MLP
 from medical_image_segmentation_tpu.models.resnet import make_resnet
 
@@ -48,7 +48,6 @@ class Encoder(nn.Module):
     volumetric: bool = False
     features3d: Any = (32, 64, 128, 256)
 
-    @nn.compact
     def __call__(self, x, train: bool = True, return_embedding: bool = False):
         if self.volumetric:
             from medical_image_segmentation_tpu.models.unet3d import UNet3DEncoder

@@ -9,8 +9,9 @@ from __future__ import annotations
 
 from typing import Any
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from medical_image_segmentation_tpu.models import nn
 
 
 class MLP(nn.Module):
@@ -18,7 +19,6 @@ class MLP(nn.Module):
     out_dim: int = 256
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, x, train: bool = True):
         x = x.astype(self.dtype)
         x = nn.Dense(self.hidden_dim, dtype=self.dtype, param_dtype=jnp.float32)(x)

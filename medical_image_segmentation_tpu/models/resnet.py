@@ -1,4 +1,4 @@
-"""TPU-native ResNet encoder family (flax.linen, NHWC, bf16-friendly).
+"""ResNet encoder family (models/nn.py modules, NHWC, bf16-friendly).
 
 Capability parity with the reference's torchvision backbone usage
 (`medical_image_segmentation/train/model/byol_pytorch.py:54-82`):
@@ -11,10 +11,11 @@ Capability parity with the reference's torchvision backbone usage
 - Kaiming (fan_out) init of the surgically replaced conv — we use it for all
   convs, matching torchvision's default init.
 
-TPU-first design notes:
-- NHWC layout (XLA:TPU's native conv layout; avoids transposes).
-- ``dtype`` controls compute/activation dtype (default bfloat16 for MXU
-  throughput); parameters are kept in float32 (``param_dtype``).
+Design notes:
+- NHWC layout (channels last, the layout cuDNN's tensor-core convolutions
+  prefer; avoids transposes).
+- ``dtype`` controls compute/activation dtype (default bfloat16 for
+  tensor-core throughput); parameters are kept in float32 (``param_dtype``).
 - BatchNorm uses float32 statistics. Under ``jit`` with the batch sharded
   over a ``data`` mesh axis, the batch-mean/var reductions are global, so
   XLA inserts the cross-replica psum automatically — this *is* the
@@ -28,8 +29,9 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Callable, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
+
+from medical_image_segmentation_tpu.models import nn
 
 ModuleDef = Any
 
@@ -43,7 +45,6 @@ class BasicBlock(nn.Module):
     conv: ModuleDef = nn.Conv
     norm: ModuleDef = nn.BatchNorm
 
-    @nn.compact
     def __call__(self, x):
         residual = x
         y = self.conv(self.filters, (3, 3), strides=(self.strides, self.strides), padding=1)(x)
@@ -69,7 +70,6 @@ class Bottleneck(nn.Module):
     groups: int = 1
     base_width: int = 64
 
-    @nn.compact
     def __call__(self, x):
         residual = x
         width = int(self.filters * (self.base_width / 64.0)) * self.groups
@@ -115,7 +115,7 @@ class ResNet(nn.Module):
     in_channels : input channel count (1 for grayscale medical images).
     low_res : CIFAR-style stem (3×3 s1 conv, no max-pool), reference
         `byol_pytorch.py:58-69`.
-    dtype : activation/compute dtype (bfloat16 default for MXU).
+    dtype : activation/compute dtype (bfloat16 by default).
     """
 
     block_cls: Callable = BasicBlock
@@ -134,7 +134,6 @@ class ResNet(nn.Module):
     def feature_dim(self) -> int:
         return 512 * self.expansion
 
-    @nn.compact
     def __call__(self, x, train: bool = True, return_pyramid: bool = False):
         conv = partial(
             nn.Conv, use_bias=False, dtype=self.dtype, param_dtype=jnp.float32, kernel_init=conv_kernel_init

@@ -1,4 +1,4 @@
-"""U-Net with a ResNet encoder (flax.linen, NHWC).
+"""U-Net with a ResNet encoder (models/nn.py modules, NHWC).
 
 Capability parity with `smp.Unet(encoder_name=arch, encoder_weights=None,
 in_channels=1, classes=n)` as used by the reference segmentation learner
@@ -11,7 +11,7 @@ in_channels=1, classes=n)` as used by the reference segmentation learner
 - head: 3×3 conv to ``n_classes`` logits (no activation — Dice loss applies
   the sigmoid, reference `segmentation.py:12-24`).
 
-TPU notes: NHWC, bf16 activations, logits in float32. Nearest upsample is a
+Notes: NHWC, bf16 activations, logits in float32. Nearest upsample is a
 reshape-broadcast (no gather), which XLA fuses with the following conv.
 The encoder subtree is named ``encoder`` so an SSL-pretrained backbone can
 be restored into it directly (the handoff the reference left unwired —
@@ -23,9 +23,9 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from medical_image_segmentation_tpu.models import nn
 from medical_image_segmentation_tpu.models.resnet import RESNET_CONFIGS, ResNet, conv_kernel_init
 
 
@@ -41,7 +41,6 @@ class DecoderBlock(nn.Module):
     filters: int
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, x, skip=None, train: bool = True):
         conv = partial(
             nn.Conv, use_bias=False, dtype=self.dtype, param_dtype=jnp.float32, kernel_init=conv_kernel_init
@@ -69,7 +68,6 @@ class UNet(nn.Module):
     dtype: Any = jnp.bfloat16
     remat: bool = False
 
-    @nn.compact
     def __call__(self, x, train: bool = True):
         h, w = x.shape[1], x.shape[2]
         if h % 32 or w % 32:

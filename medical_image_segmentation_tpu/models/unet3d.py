@@ -1,11 +1,10 @@
-"""Volumetric 3D U-Net (flax.linen, NDHWC) — beyond-reference capability.
+"""Volumetric 3D U-Net (models/nn.py modules, NDHWC) — beyond-reference capability.
 
 The reference pipeline is strictly 2D: Medical Decathlon volumes are sliced
 to PNGs (`medical_image_segmentation/analyze_data/slice_medical_decathlon_scans.py:55-83`)
-because its FFCV/torchvision input path and `smp.Unet` are 2D-only. On TPU
-the natural formulation is volumetric: XLA lowers 3D convolutions onto the
-MXU directly (a 3³ conv is a matmul with contraction 27·C — *better* MXU
-geometry than the 2D net's 9·C), and large volumes shard over the mesh's
+because its FFCV/torchvision input path and `smp.Unet` are 2D-only. Here
+the formulation is volumetric: XLA hands the 3D convolutions to cuDNN, and
+large volumes shard over the mesh's
 ``space`` axis with GSPMD-inserted halo exchanges (`parallel/mesh.py::
 spatial_sharding(ndim=5)`), so no slicing is ever required.
 
@@ -30,9 +29,9 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Sequence
 
-import flax.linen as nn
 import jax.numpy as jnp
 
+from medical_image_segmentation_tpu.models import nn
 from medical_image_segmentation_tpu.models.resnet import conv_kernel_init
 
 
@@ -52,7 +51,6 @@ class ConvBlock3D(nn.Module):
     groups: int = 8
     dtype: Any = jnp.bfloat16
 
-    @nn.compact
     def __call__(self, x, train: bool = True):
         conv = partial(
             nn.Conv, use_bias=False, dtype=self.dtype, param_dtype=jnp.float32,
@@ -88,13 +86,12 @@ class UNet3DEncoder(nn.Module):
     dtype: Any = jnp.bfloat16
     remat: bool = False
 
-    @nn.compact
     def __call__(self, x, train: bool = True):
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"expected {self.in_channels} input channels, got shape {x.shape}")
         block_cls = ConvBlock3D
         if self.remat:
-            block_cls = nn.remat(ConvBlock3D, static_argnums=(2,))
+            block_cls = nn.remat(ConvBlock3D)
         x = x.astype(self.dtype)
         for i, f in enumerate(self.features):
             x = block_cls(f, norm=self.norm, dtype=self.dtype, name=f"enc{i}")(x, train)
@@ -115,7 +112,6 @@ class UNet3D(nn.Module):
     dtype: Any = jnp.bfloat16
     remat: bool = False
 
-    @nn.compact
     def __call__(self, x, train: bool = True):
         if x.shape[-1] != self.in_channels:
             raise ValueError(f"expected {self.in_channels} input channels, got shape {x.shape}")
@@ -128,7 +124,7 @@ class UNet3D(nn.Module):
             )
         block_cls = ConvBlock3D
         if self.remat:
-            block_cls = nn.remat(ConvBlock3D, static_argnums=(2,))
+            block_cls = nn.remat(ConvBlock3D)
 
         x = x.astype(self.dtype)
         skips = []

@@ -1,4 +1,4 @@
-"""On-device batched augmentation — the FFCV pipeline re-designed for TPU.
+"""On-device batched augmentation — the FFCV pipeline re-designed for the accelerator.
 
 Replaces the reference's FFCV/Numba two-view SSL pipeline
 (`medical_image_segmentation/train/data_loaders/lightning_module.py:67-98`):
@@ -7,14 +7,14 @@ RandomGrayscale(p=0.2) → Solarization → Normalize(mean·255, std·255), and
 the torchvision variant's extras (`lightning_module.py:39-64`): ColorJitter
 (brightness/contrast/saturation) and GaussianBlur(k=23).
 
-TPU-first design — *resampling as matmul*:
+Design — *resampling as matmul*:
     A bilinear crop-resize is separable, so each sample's view is
         view = R_y @ img @ R_xᵀ        (per channel)
     where R_y (out_h, in_h) and R_x (out_w, in_w) are interpolation
     matrices with ≤2 nonzeros per row, built on device from the sampled
     crop window via `broadcasted_iota` comparisons. The batch of views is
-    then two batched matmuls (`einsum` → `dot_general` with batch dims),
-    which XLA tiles onto the MXU — no gathers, no dynamic shapes, and the
+    then two batched matmuls (`einsum` → `dot_general` with batch dims,
+    cuBLAS on the GPU) — no gathers, no dynamic shapes, and the
     elementwise tail (grayscale mix, solarize, normalize) fuses into the
     same HBM pass. Horizontal flip is folded into R_x by reversing the
     sampled window (zero cost). Gaussian blur is two more tiny matmuls
@@ -93,8 +93,8 @@ def apply_resample(img: jax.Array, r_y: jax.Array, r_x: jax.Array) -> jax.Array:
     """Batched separable resample: (B,H,W,C) → (B,h,w,C) via two matmuls."""
     dt = r_y.dtype
     img = img.astype(dt)
-    tmp = jnp.einsum("boh,bhwc->bowc", r_y, img)   # rows   — MXU
-    out = jnp.einsum("bpw,bowc->bopc", r_x, tmp)   # cols   — MXU
+    tmp = jnp.einsum("boh,bhwc->bowc", r_y, img)   # rows
+    out = jnp.einsum("bpw,bowc->bopc", r_x, tmp)   # cols
     return out
 
 
@@ -172,8 +172,7 @@ BYOL_VIEW2 = ViewConfig(solarize_prob=0.2)
 
 # torchvision-pipeline parity (reference BYOLRGBDataTransforms,
 # lightning_module.py:39-64): ColorJitter(0.4,0.4,0.2)@p=0.8,
-# GaussianBlur(k=23)@(1.0, 0.1), Solarize@(0.0, 0.2). Routes to the XLA
-# augmentation path (the fused Pallas kernel covers the blur-free configs).
+# GaussianBlur(k=23)@(1.0, 0.1), Solarize@(0.0, 0.2).
 BYOL_TV_VIEW1 = ViewConfig(blur_prob=1.0, jitter_prob=0.8, brightness=0.4, contrast=0.4,
                            saturation=0.2, solarize_prob=0.0)
 BYOL_TV_VIEW2 = ViewConfig(blur_prob=0.1, jitter_prob=0.8, brightness=0.4, contrast=0.4,

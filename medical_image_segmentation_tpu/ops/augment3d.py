@@ -3,7 +3,7 @@
 3D analogue of `ops/augment.py::segmentation_augment` for the volumetric
 path (the reference has no 3D pipeline — it slices volumes to 2D PNGs,
 `slice_medical_decathlon_scans.py:55-83`; this module is the beyond-parity
-TPU-native replacement). All ops are static-shape jnp: per-sample random
+replacement). All ops are static-shape jnp: per-sample random
 crops are ``lax.dynamic_slice`` under ``vmap`` (no gathers), flips are
 ``jnp.flip``-vs-identity selects shared between image and mask, intensity
 jitter (brightness/contrast, the 2D recipe's ColorJitter(0.2, 0.2)) touches

@@ -12,8 +12,8 @@ Semantics match the reference implementation
 
 All functions are pure jnp and safe under jit/vmap/grad. Reductions are
 performed in float32 regardless of input dtype so bf16 activations do not
-lose mass in the sums (TPU-friendly: the sums lower to VPU reductions that
-XLA fuses with the elementwise sigmoid).
+lose mass in the sums (the reductions fuse with the elementwise sigmoid
+in XLA).
 """
 
 from __future__ import annotations

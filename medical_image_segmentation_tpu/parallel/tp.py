@@ -2,7 +2,7 @@
 
 The reference has no tensor parallelism (its distributed stack is DDP-only,
 `medical_image_segmentation/train/train_ssl.py:77-89`); this module adds it
-the TPU way: no code changes in the model, only sharding annotations — XLA
+the XLA way: no code changes in the model, only sharding annotations — XLA
 GSPMD turns them into the Megatron pattern automatically:
 
 - ``Dense_0`` (feat → 4096) kernel sharded on the OUTPUT dim

@@ -10,24 +10,25 @@ directly). This is the deployment story the reference lacks entirely: its
 only inference path is ``trainer.predict`` grid dumps inside the training
 script (reference ``train_segmentation.py:82-93``).
 
-Design notes (TPU-first):
+Design notes:
 - **Static batch buckets.** One exported function per batch size keeps every
-  serving shape static for the MXU; the predictor routes a request to the
+  serving shape static (one compiled program each); the predictor routes a request to the
   smallest bucket that fits and pads the tail (padding rows repeat the last
   sample and are trimmed before returning).
-- **Multi-platform lowering.** ``platforms=("tpu", "cpu")`` bakes both
-  lowerings into one artifact, so the same file serves on a TPU host and in
-  a CPU canary/CI environment.
+- **Multi-platform lowering.** ``platforms=("cuda", "cpu")`` bakes both
+  lowerings into one artifact, so the same file serves on a GPU host and in
+  a CPU canary/CI environment. The meta records the platforms the artifact
+  itself reports, and loading refuses one that cannot run here.
 - **Size scales with buckets.** jax.export has no cross-function constant
   sharing, so every batch bucket embeds its own copy of the weights —
   artifact size ≈ n_buckets × params (float32: params keep
   ``param_dtype=float32`` regardless of the compute dtype). Pick the few
   bucket sizes the serving tier actually uses.
 - **Single-device serving.** An artifact is lowered without shardings, so
-  ``Exported.call`` runs each bucket on one chip — the right unit for a
+  ``Exported.call`` runs each bucket on one card — the right unit for a
   serving tier that scales by replication. The checkpoint-backed
-  ``mis-predict`` path instead shards each batch over all local chips; on a
-  multi-chip host it can be up to chip-count× faster per process.
+  ``mis-predict`` path instead shards each batch over all local cards; on a
+  multi-card host it can be up to card-count× faster per process.
 
 Container layout: ``MISX1\\n`` magic, a u32 little-endian JSON-header
 length, the JSON header ``{"meta": ..., "buckets": {"<B>": [offset, size]}}``
@@ -240,10 +241,28 @@ def _read_container(path: str):
     return header["meta"], blobs
 
 
+def artifact_platforms(exported) -> list:
+    """The lowering platforms the exported functions report (jax's names:
+    ``cuda`` for NVIDIA GPUs, ``cpu``), for the artifact's meta."""
+    return sorted({p for e in exported.values() for p in e.platforms})
+
+
+def _check_platform(path: str, meta: dict) -> None:
+    import jax
+
+    here = jax.export.default_export_platform()
+    platforms = meta.get("platforms")
+    if platforms and here not in platforms:
+        raise ValueError(
+            f"{path}: artifact was lowered for {platforms}, not for this host's "
+            f"{here!r}; re-export with --platforms {','.join(sorted({*platforms, here}))}")
+
+
 def load_predictor(path: str) -> ServingPredictor:
     """Read a batched-2D ``.misx`` container → ServingPredictor (blobs held
     in memory, deserialized per bucket on first use)."""
     meta, blobs = _read_container(path)
+    _check_platform(path, meta)
     if meta.get("kind", "batched2d") != "batched2d":
         raise ValueError(
             f"{path}: artifact kind {meta.get('kind')!r} is not a batched 2D "
@@ -258,6 +277,7 @@ def load_window_predictor(path: str):
     (B, d, h, w, 1) float32 and returns logits — the ``apply_fn`` contract of
     ``sliding_window_predict_3d`` (which always pads the tail batch)."""
     meta, blobs = _read_container(path)
+    _check_platform(path, meta)
     if meta.get("kind") != "window3d":
         raise ValueError(
             f"{path}: artifact kind {meta.get('kind')!r} is not a volumetric "

@@ -19,7 +19,7 @@ Capability parity with the reference `BYOL(pl.LightningModule)`
   so val top-1/top-5 (`byol_pytorch.py:298-317`) is meaningful;
 - validation top-1/top-5 through the probe.
 
-TPU-first design:
+Design:
 - The momentum encoder is a *second variable tree for the same Encoder
   module* — the EMA is a pure pytree lerp fused by XLA, no module copies.
 - Everything (fwd, bwd, LARS, EMA) is one jitted step with donated state.
@@ -34,10 +34,11 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
+
+from medical_image_segmentation_tpu.core.struct import PyTreeNode
 
 from medical_image_segmentation_tpu.models.byol import BYOLNet, Encoder
 from medical_image_segmentation_tpu.ops.byol_loss import cosine_similarity_loss
@@ -45,7 +46,7 @@ from medical_image_segmentation_tpu.ops.lars import lars, make_lars_mask
 from medical_image_segmentation_tpu.ops.schedules import cosine_ema_momentum, linear_warmup_cosine_annealing
 
 
-class BYOLState(flax.struct.PyTreeNode):
+class BYOLState(PyTreeNode):
     step: jax.Array
     params: Any          # BYOLNet params (encoder + predictor + probe)
     batch_stats: Any     # BYOLNet batch stats

@@ -42,7 +42,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "greedily decompose over the largest buckets that fit; only a "
                          "remainder smaller than every bucket pads)")
     ap.add_argument("--platforms", default=None,
-                    help="comma-separated lowering platforms, e.g. 'tpu,cpu' — one "
+                    help="comma-separated lowering platforms, e.g. 'cuda,cpu' — one "
                          "artifact serves on every listed platform (default: current)")
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
@@ -51,12 +51,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    from medical_image_segmentation_tpu.core.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
     import numpy as np
 
     from medical_image_segmentation_tpu.core.checkpoint import resolve_checkpoint_path, restore_checkpoint
-    from medical_image_segmentation_tpu.serve import export_predictor, save_predictor
+    from medical_image_segmentation_tpu.serve import artifact_platforms, export_predictor, save_predictor
     from medical_image_segmentation_tpu.train.segmentation_task import SegmentationTask
 
     mean, std = args.mean, args.std
@@ -99,7 +102,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "threshold": args.threshold,
         "hu_windows": [list(w) for w in hu_windows],
         "batch_sizes": sorted(exported),
-        "platforms": platforms or [jax.default_backend()],
+        "platforms": artifact_platforms(exported),
         "checkpoint_step": int(np.asarray(state.step)),
         "jax_version": jax.__version__,
         "dtype": "float32" if not args.bf16 else "bfloat16",

@@ -36,7 +36,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--batch_windows", type=int, default=4,
                     help="static window batch baked into the artifact")
     ap.add_argument("--platforms", default=None,
-                    help="comma-separated lowering platforms, e.g. 'tpu,cpu'")
+                    help="comma-separated lowering platforms, e.g. 'cuda,cpu'")
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
     return ap.parse_args(argv)
@@ -44,13 +44,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    from medical_image_segmentation_tpu.core.runtime import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
     import numpy as np
 
     from medical_image_segmentation_tpu.core.checkpoint import resolve_checkpoint_path, restore_checkpoint
     from medical_image_segmentation_tpu.ops.augment import parse_hu_windows
-    from medical_image_segmentation_tpu.serve import export_window_predictor, save_predictor
+    from medical_image_segmentation_tpu.serve import artifact_platforms, export_window_predictor, save_predictor
     from medical_image_segmentation_tpu.train.seg3d_task import Segmentation3DTask
 
     hu_windows = (parse_hu_windows(args.hu_windows, value_max=1.0)
@@ -81,7 +84,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "mean": args.mean,
         "std": args.std,
         "hu_windows": [list(w) for w in hu_windows],
-        "platforms": platforms or [jax.default_backend()],
+        "platforms": artifact_platforms(exported),
         "checkpoint_step": int(np.asarray(state.step)),
         "jax_version": jax.__version__,
         "dtype": "float32" if not args.bf16 else "bfloat16",

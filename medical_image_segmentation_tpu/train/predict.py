@@ -4,7 +4,7 @@ The reference's only inference path is ``trainer.predict`` wired inside the
 training entry (`medical_image_segmentation/train/train_segmentation.py:82-93`,
 grid dumps only) — a deployable predict entry point does not exist there.
 This CLI loads a segmentation checkpoint and serves binary masks for a
-directory of PNG/DICOM slices or an MIS store, batched on the TPU:
+directory of PNG/DICOM slices or an MIS store, batched on the device:
 
   mis-predict --checkpoint ckpt/seg --arch resnet18 --dataset DECATHLON_LIVER \\
       --images_dir slices/ --output_dir masks/ [--overlay_dir overlays/] \\
@@ -16,8 +16,8 @@ Two modes:
   static shape → one XLA program), normalize + forward on device in batches,
   nearest-resize each mask back to its source resolution;
 - **--sliding_window N**: full-resolution inference via overlapping blended
-  windows (`eval/sliding_window.py`) — the mode that measured +4.3 dice
-  points over resized eval in BASELINE.md.
+  windows (`eval/sliding_window.py`), which scored higher dice than
+  resized eval.
 
 Masks are written as 0/255 PNGs named after their inputs; ``--overlay_dir``
 additionally writes red-overlay visualizations. A one-line JSON throughput
@@ -39,7 +39,7 @@ import numpy as np
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description="Batched U-Net mask inference (TPU-native serving)")
+    ap = argparse.ArgumentParser(description="Batched U-Net mask inference")
     ap.add_argument("--checkpoint", default=None,
                     help="segmentation checkpoint directory (latest step) or a specific step path")
     ap.add_argument("--exported", default=None,
@@ -118,6 +118,9 @@ def _write_overlay(path: str, gray: np.ndarray, mask01: np.ndarray) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    from medical_image_segmentation_tpu.core.runtime import enable_compile_cache
+
+    enable_compile_cache()
     if (args.images_dir is None) == (args.image_store is None):
         raise SystemExit("exactly one of --images_dir / --image_store is required")
     if (args.checkpoint is None) == (args.exported is None):
@@ -258,7 +261,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             for full in x.shape[:2]:
                 n_win *= len(_window_starts(max(full, w), w, max(1, w // 2)))
             if multi_chip or n_win > 64:
-                # sharded over all chips, or too many windows for the fused
+                # sharded over all devices, or too many windows for the fused
                 # program's compile time (see predict3d.py) — loop variant
                 logits = sliding_window_predict(
                     window_fn, jnp.asarray(x), window=args.sliding_window,

@@ -28,7 +28,7 @@ import numpy as np
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description="Volumetric 3D U-Net mask inference (TPU-native serving)")
+    ap = argparse.ArgumentParser(description="Volumetric 3D U-Net mask inference")
     ap.add_argument("--checkpoint", default=None,
                     help="seg3d checkpoint directory (latest step) or a specific step path")
     ap.add_argument("--exported", default=None,
@@ -55,6 +55,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    from medical_image_segmentation_tpu.core.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp
@@ -145,21 +148,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             n_win *= len(_window_starts(max(full, w), w, max(1, w // 2)))
         multi_chip = mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1
         if multi_chip or n_win > 64:
-            # multi-chip: shard window batches over the data axis. Large
-            # tilings (>64 windows, e.g. whole-CT 125-window volumes) also
-            # keep the loop variant: XLA compile time of the fused scan
-            # program grows pathologically with the tiling (measured >10 min
-            # at 125 windows vs ~1 min at 12), and at that many windows the
+            # several devices: shard window batches over the data axis.
+            # Large tilings (>64 windows, e.g. whole-CT 125-window volumes)
+            # also keep the loop variant: the fused scan program's compile
+            # time grows with the tiling, and at that many windows the
             # per-batch dispatch overhead is amortized anyway
             logits = sliding_window_predict_3d(
                 window_fn, jnp.asarray(x), window=tuple(args.window),
                 batch_windows=args.batch_windows, mesh=mesh,
             )
         else:
-            # single chip, moderate tiling: ONE fused dispatch per volume,
-            # specialized (and cached) per volume-shape class — kills
-            # per-batch program-launch and coordinate-upload latency on
-            # remote-device links (measured 13.3 → 16.7 vol/s, p50 75 → 60 ms)
+            # one device, moderate tiling: ONE fused dispatch per volume,
+            # specialized (and cached) per volume-shape class — no
+            # per-batch program launches or coordinate uploads
             pred = fused_cache.get(x.shape)
             if pred is None:
                 pred = fused_cache[x.shape] = make_fused_predictor_3d(

@@ -1,11 +1,11 @@
 """Shared preemption / lockstep-stop machinery for the trainer entry points.
 
-TPU pods get preempted; the reference relied on PyTorch Lightning defaults
+Cluster jobs get preempted; the reference relied on PyTorch Lightning defaults
 for checkpoint/resume (per-epoch ModelCheckpoint + ``ckpt_path``, reference
 `train_segmentation.py:51-61`, SURVEY §5.4). Here both trainers share one
 implementation: on SIGTERM/SIGINT the current step finishes, every host
 *agrees* to stop at a lockstep collective boundary, a checkpoint is written
-by all hosts (orbax saves are collective), and the process exits 0 so the
+by all hosts (the save gathers the state collectively), and the process exits 0 so the
 scheduler can resume it with ``--resume``.
 
 The agreement protocol is the delicate part — see ``PreemptionGuard.stop_agreed``.

@@ -8,7 +8,7 @@ Decathlon volumes with the same loss/metric semantics as the 2D path
 threshold 0.5) and the same LARS + warmup-cosine optimization
 (`segmentation.py:62-77` semantics).
 
-TPU-first: one jitted ``train_step`` (donated state). Under a
+One jitted ``train_step`` (donated state). Under a
 ("data","space") mesh, volumes shard over batch AND depth
 (`parallel/mesh.py::spatial_sharding(ndim=5)`) — XLA GSPMD inserts the 3D
 conv halo exchanges; gradient all-reduce comes from the sharding alone.
@@ -22,10 +22,11 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Dict, Sequence, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
+
+from medical_image_segmentation_tpu.core.struct import PyTreeNode
 
 from medical_image_segmentation_tpu.models.unet3d import UNet3D
 from medical_image_segmentation_tpu.ops.dice import dice_coefficient, dice_loss, jaccard_index, post_process_masks
@@ -33,7 +34,7 @@ from medical_image_segmentation_tpu.ops.lars import lars, make_lars_mask
 from medical_image_segmentation_tpu.ops.schedules import linear_warmup_cosine_annealing
 
 
-class Seg3DState(flax.struct.PyTreeNode):
+class Seg3DState(PyTreeNode):
     step: jax.Array
     params: Any
     batch_stats: Any

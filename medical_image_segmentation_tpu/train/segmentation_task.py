@@ -9,7 +9,7 @@ Capability parity with the reference `Segmentation(pl.LightningModule)`
 - LARS optimizer with warmup-cosine schedule, bias/BN excluded from decay
   and adaptation (`segmentation.py:62-77`).
 
-TPU-first: one jitted ``train_step`` (donated state) whose gradient
+One jitted ``train_step`` (donated state) whose gradient
 all-reduce and global BatchNorm stats come from XLA when the batch is
 sharded over the mesh's ``data`` axis; no DDP/sync-BN machinery.
 """
@@ -19,10 +19,11 @@ from __future__ import annotations
 from functools import partial
 from typing import Any, Dict, Tuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 import optax
+
+from medical_image_segmentation_tpu.core.struct import PyTreeNode
 
 from medical_image_segmentation_tpu.models.unet import UNet
 from medical_image_segmentation_tpu.ops.dice import dice_coefficient, dice_loss, jaccard_index, post_process_masks
@@ -30,7 +31,7 @@ from medical_image_segmentation_tpu.ops.lars import lars, make_lars_mask
 from medical_image_segmentation_tpu.ops.schedules import linear_warmup_cosine_annealing
 
 
-class SegState(flax.struct.PyTreeNode):
+class SegState(PyTreeNode):
     step: jax.Array
     params: Any
     batch_stats: Any

@@ -34,7 +34,7 @@ import numpy as np
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description="U-Net medical segmentation (TPU-native)")
+    ap = argparse.ArgumentParser(description="U-Net medical segmentation")
     ap.add_argument("--dataset", default="DECATHLON_LIVER")
     ap.add_argument("--images_dir", required=True)
     ap.add_argument("--masks_dir", required=True)
@@ -79,7 +79,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="skip the pre-flight projected-HBM guard (core/hbm.py)")
     ap.add_argument("--force_hbm", action="store_true",
                     help="run even if the step's projected HBM exceeds device "
-                         "capacity (expect the spill slowdown, BASELINE.md)")
+                         "capacity (it would fail to allocate on the GPU)")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
                     help="trace the first N steps with jax.profiler into <log_dir>/trace "
                          "and print per-stage loader timers each epoch")
@@ -100,8 +100,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from medical_image_segmentation_tpu.parallel import initialize_distributed, make_mesh, replicated, shard_batch
     from medical_image_segmentation_tpu.train.segmentation_task import SegmentationTask
     from medical_image_segmentation_tpu.utils.viz import save_combined_image_grid
+    from medical_image_segmentation_tpu.core.runtime import enable_compile_cache
 
     initialize_distributed()
+    enable_compile_cache()
     mesh = make_mesh()
     if args.batch_size % len(jax.devices()) != 0:
         raise SystemExit(
@@ -181,7 +183,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                     train=True, dtype=dtype, hu_windows=hu_windows)
         return task.train_step(state, x, y)
 
-    # Pre-flight projected-HBM guard (VERDICT r4 weak #4): refuse a config
+    # Pre-flight projected-memory guard: refuse a config
     # whose compiled step oversubscribes the device BEFORE training, with the
     # fix levers named (--remat / smaller batch). No-op on CPU test meshes.
     from medical_image_segmentation_tpu.core.hbm import guard_step

@@ -7,8 +7,8 @@ Medical Decathlon NIfTI volumes:
 
 - host: `data/volumes.py` loads/pads volumes to a static shape;
 - device: paired random crop/flip/jitter in `ops/augment3d.py`;
-- model: `models/unet3d.py` (3³ convs → better MXU contraction geometry
-  than the 2D net), Dice semantics identical to the 2D path;
+- model: `models/unet3d.py` (3³ convs), Dice semantics identical to the
+  2D path;
 - scaling: ``--space_shards S`` builds a ("data","space") mesh and shards
   volumes over batch AND depth — XLA GSPMD inserts the 3D conv halo
   exchanges (`parallel/mesh.py::spatial_sharding(ndim=5)`), so volumes
@@ -34,7 +34,7 @@ import numpy as np
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(description="3D U-Net volumetric segmentation (TPU-native)")
+    ap = argparse.ArgumentParser(description="3D U-Net volumetric segmentation")
     ap.add_argument("--images_dir", required=True)
     ap.add_argument("--masks_dir", required=True)
     ap.add_argument("--split_file", default=None)
@@ -88,12 +88,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "per-epoch val cost zero host→device volume traffic "
                          "(narrow-link/few-core hosts; single-process only)")
     ap.add_argument("--skip_hbm_check", action="store_true",
-                    help="skip the pre-run projected-HBM guard (one extra AOT "
-                         "compile; cached when JAX_COMPILATION_CACHE_DIR is set)")
+                    help="skip the pre-run projected-memory guard (one extra AOT "
+                         "compile, kept by the persistent compile cache)")
     ap.add_argument("--force_hbm", action="store_true",
-                    help="run even when the step is projected to oversubscribe "
-                         "HBM (measured ~8x slowdown past the spill cliff — "
-                         "BASELINE.md seg3d table)")
+                    help="run even when the step is projected to exceed device "
+                         "memory (it would fail to allocate on the GPU)")
     return ap.parse_args(argv)
 
 
@@ -111,8 +110,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from medical_image_segmentation_tpu.parallel.mesh import spatial_sharding
     from medical_image_segmentation_tpu.train.resilience import PreemptionGuard
     from medical_image_segmentation_tpu.train.seg3d_task import Segmentation3DTask
+    from medical_image_segmentation_tpu.core.runtime import enable_compile_cache
 
     initialize_distributed()
+    enable_compile_cache()
     ndev = len(jax.devices())
     if args.space_shards > 1:
         if ndev % args.space_shards:
@@ -244,12 +245,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 y = jax.lax.with_sharding_constraint(y, vol_sharding)
             return task.train_step(state, x, y)
 
-    # Projected-HBM guard (the seg3d spill cliff: batch 96 → 284 vol/s but
-    # batch 112 → 34.9 vol/s on a v5e, BASELINE.md — XLA runs oversubscribed
-    # programs ~8x slower instead of failing). AOT-compile the step at the
-    # exact batch shapes and refuse if XLA's static memory plan exceeds the
-    # device, BEFORE the user pays for a silently crippled run. Skipped on
-    # CPU backends (no capacity to check; tests use the virtual CPU mesh).
+    # Projected-memory guard: AOT-compile the step at the exact batch shapes
+    # and refuse if XLA's static memory plan exceeds the device, BEFORE the
+    # run starts (on the GPU such a step fails to allocate). Skipped on CPU
+    # backends (no capacity to check; tests use the virtual CPU mesh).
     if train_corpus is not None:
         idx_spec = jax.ShapeDtypeStruct((per_host,), jnp.int32)
         specs = tuple(jax.ShapeDtypeStruct(c.shape, c.dtype, sharding=c.sharding)

@@ -283,3 +283,48 @@ class TestMultiWindowChannels:
                                     hu_windows=((0.4, 0.6), (0.2, 0.2), (0.7, 0.3)))
         state, m = task.train_step(state, x, y)
         assert np.isfinite(float(m["train/loss"]))
+
+
+class TestViewConfigs:
+    def test_u16_scale_equivalence_xla_path(self):
+        """The full XLA pipeline on (x*257 as u16, stats*257, value_max=65535)
+        equals the u8 pipeline on x — augmentation semantics are depth-
+        invariant by construction (datamodules.py::view_configs scaling)."""
+        import dataclasses
+
+        rng = np.random.default_rng(12)
+        img8 = rng.integers(0, 256, size=(4, 48, 48, 1))
+        img16 = (img8 * 257).astype(np.uint16)
+        cfg8 = dataclasses.replace(
+            BYOL_VIEW2, out_size=(32, 32), window_prob=0.5)
+        cfg16 = dataclasses.replace(
+            cfg8, value_max=65535.0, solarize_threshold=cfg8.solarize_threshold * 257,
+            window_level_range=tuple(x * 257 for x in cfg8.window_level_range),
+            window_width_range=tuple(x * 257 for x in cfg8.window_width_range))
+        key = jax.random.key(7)
+        v8 = two_view_augment(key, jnp.asarray(img8, jnp.uint8), cfg8, cfg8,
+                              mean=(60.0,), std=(50.0,), dtype=jnp.float32)
+        v16 = two_view_augment(key, jnp.asarray(img16), cfg16, cfg16,
+                               mean=(60.0 * 257,), std=(50.0 * 257,), dtype=jnp.float32)
+        for a, b in zip(v8, v16):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-3)
+
+    def test_datamodule_recipe_selection(self):
+        """--aug_recipe / --window_prob must actually change view_configs
+        (round-1 verdict: BYOL_TV_* and window_prob were unreachable)."""
+        from medical_image_segmentation_tpu.data.datamodules import get_datamodule
+
+        dm = get_datamodule("CIFAR10")()
+        v1, v2 = dm.view_configs()
+        assert v1.blur_prob == 0.0 and v1.jitter_prob == 0.0
+        dm.aug_recipe = "torchvision"
+        v1, v2 = dm.view_configs()
+        assert v1.blur_prob == 1.0 and v2.blur_prob == 0.1
+        assert v1.jitter_prob == 0.8 and v1.brightness == 0.4
+        assert v2.solarize_prob == 0.2
+        dm.window_prob = 0.3
+        v1, _ = dm.view_configs()
+        assert v1.window_prob == 0.3
+        dm.aug_recipe = "nope"
+        with pytest.raises(ValueError):
+            dm.view_configs()

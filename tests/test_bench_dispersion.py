@@ -1,11 +1,10 @@
 """Contention tripwire in bench.py (`_dispersion_fields`).
 
-Round 4's driver-captured flagship bench silently averaged a contended chip
-into 100.9 ms/step (vs the stable 77.6 ms band) because another process was
-training on the TPU during capture. The tripwire compares a short FENCED
-per-step probe against the unfenced throughput loop's mean and flags the two
+A contended card (another process computing on it during capture) makes a
+throughput loop silently average in someone else's work. The tripwire
+compares a short FENCED per-step probe against the unfenced throughput loop's mean and flags the two
 contention signatures: probe-internal p99/p50 dispersion, and a loop mean far
-above the fenced p50. These tests replay the real r04 numbers.
+above the fenced p50. These tests replay one such contaminated capture.
 """
 
 import importlib.util

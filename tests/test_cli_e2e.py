@@ -140,8 +140,8 @@ def test_full_pipeline(workspace, monkeypatch):
 @pytest.mark.slow
 def test_train_ssl_torchvision_recipe_smoke(tmp_path, monkeypatch):
     """--aug_recipe torchvision end-to-end: the ColorJitter+GaussianBlur
-    pipeline (reference lightning_module.py:39-64) must route through the
-    XLA augmentation path (Pallas gate refuses blur) and train."""
+    pipeline (reference lightning_module.py:39-64) must run through the
+    augmentation path end to end and train."""
     import numpy as np
 
     from medical_image_segmentation_tpu.data.store import StoreWriter

@@ -3,7 +3,7 @@
 This exercises what the virtual 8-device mesh cannot: real
 `jax.distributed.initialize`, `make_array_from_process_local_data` over
 host-local shards, cross-host collectives, and per-host Loader sharding —
-the v5e-32 multi-host path (SURVEY §5.8) on two CPU processes.
+the multi-process path (SURVEY §5.8) on two CPU processes.
 """
 
 import os

@@ -3,7 +3,7 @@ volume dataset, and spatial sharding.
 
 The reference has no 3D path at all (volumes are sliced to PNGs,
 `slice_medical_decathlon_scans.py:55-83`); these tests pin the
-beyond-reference TPU-native implementation."""
+beyond-reference implementation."""
 
 import os
 

@@ -238,3 +238,26 @@ class TestWindow3DExport:
         save_predictor(p, exported, {"kind": "batched2d", "image_size": 64})
         with pytest.raises(ValueError, match="window"):
             load_window_predictor(p)
+
+
+class TestArtifactPlatforms:
+    def test_records_reported_platforms_and_refuses_foreign(self, tmp_path):
+        """The meta lists the platforms the artifact reports (jax's 'cuda' for
+        NVIDIA GPUs, not the backend name 'gpu'); an artifact lowered for cuda
+        and cpu loads here, a cuda-only one is refused with the fix."""
+        from medical_image_segmentation_tpu.serve import (
+            artifact_platforms, export_predictor, load_predictor, save_predictor)
+
+        task, state = _tiny_task_state()
+        exported = export_predictor(task, state, image_size=64, mean=0.2, std=0.21,
+                                    batch_sizes=(1,), fp32=True, platforms=("cuda", "cpu"))
+        assert artifact_platforms(exported) == ["cpu", "cuda"]
+        both = str(tmp_path / "both.misx")
+        save_predictor(both, exported, {"image_size": 64, "platforms": artifact_platforms(exported)})
+        pred = load_predictor(both)
+        out = pred(np.zeros((1, 64, 64, 1), np.uint8))
+        assert out.shape == (1, 64, 64, 1)
+        cuda = str(tmp_path / "cuda.misx")
+        save_predictor(cuda, exported, {"image_size": 64, "platforms": ["cuda"]})
+        with pytest.raises(ValueError, match="lowered for \\['cuda'\\].*--platforms cpu,cuda"):
+            load_predictor(cuda)

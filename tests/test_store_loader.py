@@ -608,3 +608,19 @@ class TestU16Store:
         r2 = StoreReader(out2)
         assert r2.header.sample_dtype == np.uint16
         np.testing.assert_array_equal(r2.image(0)[..., 0], img16)
+
+
+def test_native_build_key_covers_command_compiler_and_cpu():
+    """A library built under other flags, by another compiler, or for
+    another CPU (-march=native) must not be loaded: each changes the key."""
+    from medical_image_segmentation_tpu.data.store import native
+
+    def key(jpeg=True, png=True, version="g++ 13.3.0", cpu="flags: avx2"):
+        return native.build_key(native.build_command("/x/out.so", "g++", jpeg, png), version, cpu)
+
+    assert key() == key()
+    assert native.build_key(native.build_command("/y/other.so"), "g++ 13.3.0", "flags: avx2") == key()
+    assert "-march=native" in native.build_command("out.so")
+    assert "-DMIS_NO_JPEG" in native.build_command("out.so", jpeg=False)
+    assert len({key(), key(jpeg=False), key(png=False), key(version="g++ 12"),
+                key(cpu="flags: avx512f")}) == 5

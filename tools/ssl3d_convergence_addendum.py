@@ -74,8 +74,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     pp = os.environ.get("PYTHONPATH", "")
     env = {**os.environ, "PYTHONPATH": REPO + (os.pathsep + pp if pp else "")}
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.join(ws, ".jax_cache"))
-    env.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+    # the trainers keep their compile cache in <repo>/build/jax_cache, or
+    # where JAX_COMPILATION_CACHE_DIR says (core/runtime.py)
 
     rows = []
     for epochs in (int(e) for e in args.epochs.split(",")):
