@@ -11,13 +11,13 @@ One card, in order:
    same call on the CPU under ``jax.default_matmul_precision("highest")``,
    for a uint8 batch and a windowed uint16 batch at the flagship's widths
    (1024 images of 256², two 112² views); then the augmentation alone and
-   the whole flagship BYOL step, each timed behind ``block_until_ready``;
+   ``bench.py``'s flagship BYOL step, each timed behind ``block_until_ready``;
 3. trainer: ``train.train_ssl.main`` trains BYOL ResNet-18 at batch 1024
    from a seeded raw-codec store through the C++ loader, checkpoints each
    epoch, then resumes from its checkpoint and trains on;
-4. the other timed paths of ``bench.py`` at its default sizes: U-Net
-   training, UNet3D training, batched 2D predict and the fused 3D sliding
-   window;
+4. the other timed paths of ``bench.py``, built by its own functions at its
+   default sizes: U-Net training, UNet3D training, batched 2D predict and the
+   fused 3D sliding window;
 5. the test suite's ``gpu``-marked tests (``tests/test_gpu.py``), which
    skip where there is no card.
 
@@ -42,32 +42,15 @@ import subprocess
 import sys
 import tempfile
 import time
-from functools import partial
 
 import numpy as np
 
 SEED = 0
-
-
-@dataclasses.dataclass(frozen=True)
-class Sizes:
-    """Shapes of the run: the defaults are the flagship's and ``bench.py``'s
-    widths. Smaller ones exist only to rehearse the script's control flow."""
-
-    batch: int = 1024            # BYOL global batch
-    raw_hw: int = 256            # stored image side (views are the datamodule's 112²)
-    hidden: int = 4096           # BYOL MLP hidden width (projection 256)
-    timed_steps: int = 20
-    seg_batch: int = 128
-    seg_hw: int = 224
-    predict_batch: int = 256
-    seg3d_batch: int = 4
-    volume: tuple = (64, 96, 96)
-    crop3d: tuple = (32, 64, 64)
-    features3d: tuple = (32, 64, 128, 256)
-
-
-FULL = Sizes()
+# the flagship's widths (bench.py's defaults): BYOL ResNet-18 at batch 1024
+# on 256² stored images, two 112² views, heads 4096/256
+BATCH = 1024
+RAW_HW = 256
+TIMED_STEPS = 20
 # The reference rounded every view to uint8, so half a grey level on the
 # 0-255 scale is within what it does itself. uint16 views are held to the
 # same share of full scale (0.5 * 257 levels of 65535).
@@ -124,13 +107,14 @@ def fenced_ms(run, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def phase_augment(gpu, card: str, sz: Sizes = FULL) -> dict:
+def phase_augment(gpu, card: str) -> dict:
     import jax
     import jax.numpy as jnp
 
+    import bench
     from medical_image_segmentation_tpu.data.datamodules import get_datamodule
     from medical_image_segmentation_tpu.ops.augment import two_view_augment
-    from medical_image_segmentation_tpu.train import BYOLTask
+    from medical_image_segmentation_tpu.parallel import make_mesh
 
     cpu = jax.devices("cpu")[0]
     rng = np.random.default_rng(SEED)
@@ -141,8 +125,7 @@ def phase_augment(gpu, card: str, sz: Sizes = FULL) -> dict:
         dm = get_datamodule(dm_name)(window_prob=window_prob)
         cfgs = dm.view_configs()
         mean, std = tuple(dm.train_mean), tuple(dm.train_std)
-        raw = rng.integers(0, int(dm.value_max) + 1, size=(sz.batch, sz.raw_hw, sz.raw_hw, 1),
-                           dtype=dtype)
+        raw = rng.integers(0, int(dm.value_max) + 1, size=(BATCH, RAW_HW, RAW_HW, 1), dtype=dtype)
 
         def views(device, precision):
             ctx = jax.default_matmul_precision(precision) if precision else contextlib.nullcontext()
@@ -155,7 +138,7 @@ def phase_augment(gpu, card: str, sz: Sizes = FULL) -> dict:
         errs = {}
         for label, precision in (("default", None), ("highest", "highest")):
             got = views(gpu, precision)
-            check(all(np.isfinite(x).all() and x.shape == (sz.batch, dm.crop_size, dm.crop_size, 1)
+            check(all(np.isfinite(x).all() and x.shape == (BATCH, dm.crop_size, dm.crop_size, 1)
                       for x in got), f"augment {name}: non-finite views or wrong shape")
             errs[label] = max(view_error(g, r, c, mean, std) for g, r, c in zip(got, ref, cfgs))
             errs[label] *= 255.0 / dm.value_max  # grey levels on the 0-255 scale
@@ -165,23 +148,10 @@ def phase_augment(gpu, card: str, sz: Sizes = FULL) -> dict:
             check(e < TOL_GREY, f"augment {name} ({label} precision): error {e} >= {TOL_GREY}")
         out[name] = errs
 
-    # the augmentation's share of the flagship step, both in bf16 as trained
-    dm = get_datamodule("RADIOLOGY_1M")()
-    cfgs = dm.view_configs()
-    mean, std = tuple(dm.train_mean), tuple(dm.train_std)
-    raw = jax.device_put(
-        rng.integers(0, 256, size=(sz.batch, sz.raw_hw, sz.raw_hw, 1), dtype=np.uint8), gpu)
-    aug_ms = fenced_ms(lambda i: two_view_augment(jax.random.fold_in(key, i), raw, *cfgs,
-                                                  mean=mean, std=std), sz.timed_steps)
-    task = BYOLTask(arch="resnet18", in_channels=1, hidden_dim=sz.hidden, proj_dim=256,
-                    num_classes=10, total_steps=100_000, learning_rate=1.0,
-                    warmup_epochs=10, max_epochs=200)
-    box = [task.init(jax.random.key(SEED), (2, 112, 112, 1))]
-
-    @partial(jax.jit, donate_argnums=0)
-    def step(state, images, k):
-        v1, v2 = two_view_augment(k, images, *cfgs, mean=mean, std=std)
-        return task.train_step(state, v1, v2)
+    # the augmentation's share of bench.py's flagship step, both in bf16 as trained
+    step, state, raw, augment = bench.byol_case(make_mesh([gpu]), BATCH, RAW_HW)
+    aug_ms = fenced_ms(lambda i: augment(jax.random.fold_in(key, i), raw), TIMED_STEPS)
+    box = [state]
 
     def run(i):
         box[0], metrics = step(box[0], raw, jax.random.fold_in(key, 1000 + i))
@@ -190,11 +160,11 @@ def phase_augment(gpu, card: str, sz: Sizes = FULL) -> dict:
     t0 = time.perf_counter()
     jax.block_until_ready(run(500))
     compile_s = time.perf_counter() - t0
-    step_ms = fenced_ms(run, sz.timed_steps)
+    step_ms = fenced_ms(run, TIMED_STEPS)
     loss = float(run(99))
     check(math.isfinite(loss), f"flagship step loss {loss}")
     share = aug_ms / step_ms
-    log(f"flagship step (BYOL resnet18, batch {sz.batch}, {sz.raw_hw}²→2×112², bf16): "
+    log(f"flagship step (bench.byol_case: BYOL resnet18, batch {BATCH}, {RAW_HW}²→2×112², bf16): "
         f"{step_ms!r} ms/step, "
         f"augmentation alone {aug_ms!r} ms = {share:.2%} of the step; "
         f"first call {compile_s:.1f} s; on {card}")
@@ -226,7 +196,7 @@ def _run_cli(main, argv) -> str:
     return buf.getvalue()
 
 
-def phase_trainer(workdir: str, card: str, sz: Sizes = FULL) -> dict:
+def phase_trainer(workdir: str, card: str) -> dict:
     from medical_image_segmentation_tpu.core.checkpoint import latest_step, restore_checkpoint
     from medical_image_segmentation_tpu.data.store import CODEC_RAW, StoreWriter
     from medical_image_segmentation_tpu.data.store.native import get_lib
@@ -237,13 +207,12 @@ def phase_trainer(workdir: str, card: str, sz: Sizes = FULL) -> dict:
     store = os.path.join(workdir, "radiology_train.mis")
     rng = np.random.default_rng(SEED)
     with StoreWriter(store, channels=1) as w:  # two steps per epoch
-        for _ in range(2 * sz.batch):
-            w.add(rng.integers(0, 256, size=(sz.raw_hw, sz.raw_hw, 1), dtype=np.uint8),
+        for _ in range(2 * BATCH):
+            w.add(rng.integers(0, 256, size=(RAW_HW, RAW_HW, 1), dtype=np.uint8),
                   codec=CODEC_RAW)
     os.environ["RADIOLOGY_1M_TRAIN_STORE"] = store
     ckpt = os.path.join(workdir, "ckpt")
-    base = ["--dataset", "RADIOLOGY_1M", "--arch", "resnet18", "--batch_size", str(sz.batch),
-            "--hidden_dim", str(sz.hidden),
+    base = ["--dataset", "RADIOLOGY_1M", "--arch", "resnet18", "--batch_size", str(BATCH),
             "--val_every_epochs", "0", "--checkpoint_dir", ckpt,
             "--log_dir", os.path.join(workdir, "logs"), "--seed", str(SEED)]
     epoch_re = re.compile(r"epoch (\d+): loss=(\S+) (\d+) img/s")
@@ -266,8 +235,8 @@ def phase_trainer(workdir: str, card: str, sz: Sizes = FULL) -> dict:
 
     losses = [float(v) for _, v, _ in epochs + resumed]
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    ms = sz.batch / float(epochs[-1][2]) * 1e3
-    log(f"trainer: BYOL resnet18 batch {sz.batch} through train_ssl.main, losses {losses}, "
+    ms = BATCH / float(epochs[-1][2]) * 1e3
+    log(f"trainer: BYOL resnet18 batch {BATCH} through train_ssl.main, losses {losses}, "
         f"checkpoint at steps 2/4, resumed 4→6; epoch-1 {ms:.1f} ms/step incl. loader "
         f"(smoke number, not a benchmark) on {card}; runs took {first_s:.1f} s and "
         f"{resume_s:.1f} s")
@@ -286,94 +255,39 @@ def _steps(step, n: int = 3):
     return first, jax.block_until_ready(out)
 
 
-def phase_paths(sz: Sizes = FULL) -> dict:
+def phase_paths() -> dict:
+    """bench.py's other timed paths at its default sizes, through its builders."""
     import jax
-    import jax.numpy as jnp
 
-    from medical_image_segmentation_tpu.eval.sliding_window import make_fused_predictor_3d
-    from medical_image_segmentation_tpu.ops.augment import segmentation_augment
-    from medical_image_segmentation_tpu.ops.augment3d import segmentation_augment_3d
-    from medical_image_segmentation_tpu.serve import make_predict_fn
-    from medical_image_segmentation_tpu.train.seg3d_task import Segmentation3DTask
-    from medical_image_segmentation_tpu.train.segmentation_task import SegmentationTask
+    import bench
+    from medical_image_segmentation_tpu.parallel import make_mesh
 
-    rng = np.random.default_rng(SEED)
+    mesh = make_mesh()
     key = jax.random.key(SEED)
     out = {}
+    for name, case in (("seg", bench.seg_case), ("seg3d", bench.seg3d_case)):
+        step, state, inputs = case(mesh)
+        box = [state]
 
-    # seg: U-Net(resnet18) 224², batch 128, device-side paired augmentation
-    task = SegmentationTask(arch="resnet18", n_classes=1, in_channels=1, learning_rate=1.0,
-                            warmup_epochs=10, max_epochs=50, steps_per_epoch=100)
-    shape = (sz.seg_batch, sz.seg_hw, sz.seg_hw, 1)
-    box = [task.init(key, (2, sz.seg_hw, sz.seg_hw, 1))]
-    imgs = jnp.asarray(rng.integers(0, 256, size=shape, dtype=np.uint8))
-    msks = jnp.asarray((rng.random(shape) < 0.2).astype(np.uint8))
+        def train(i):
+            box[0], m = step(box[0], *inputs, jax.random.fold_in(key, i))
+            return m["train/loss"]
 
-    @partial(jax.jit, donate_argnums=0)
-    def seg_step(state, imgs, msks, k):
-        x, y = segmentation_augment(k, imgs, msks, out_size=(sz.seg_hw, sz.seg_hw), mean=(0.2089,),
-                                    std=(0.2109,), train=True, dtype=jnp.bfloat16)
-        return task.train_step(state, x, y)
+        first, loss = _steps(train)
+        check(math.isfinite(float(loss)), f"{name} loss {loss}")
+        out[name] = {"compile_s": first, "loss": float(loss)}
 
-    def seg(i):
-        box[0], m = seg_step(box[0], imgs, msks, jax.random.fold_in(key, i))
-        return m["train/loss"]
-
-    first, loss = _steps(seg)
-    check(math.isfinite(float(loss)), f"seg loss {loss}")
-    out["seg"] = {"compile_s": first, "loss": float(loss)}
-
-    # seg3d: UNet3D (32, 64, 128, 256), batch 4, (64, 96, 96) volumes → (32, 64, 64) crops
-    task3 = Segmentation3DTask(features=sz.features3d, learning_rate=1.0,
-                               warmup_epochs=10, max_epochs=50, steps_per_epoch=100)
-    vshape = (sz.seg3d_batch, *sz.volume, 1)
-    box3 = [task3.init(key, (1, *sz.crop3d, 1))]
-    vols = jnp.asarray(rng.random(vshape).astype(np.float32))
-    vmsk = jnp.asarray((rng.random(vshape) < 0.2).astype(np.float32))
-
-    @partial(jax.jit, donate_argnums=0)
-    def seg3d_step(state, vols, msks, k):
-        x, y = segmentation_augment_3d(k, vols, msks, out_size=sz.crop3d, train=True,
-                                       dtype=jnp.bfloat16)
-        return task3.train_step(state, x, y)
-
-    def seg3d(i):
-        box3[0], m = seg3d_step(box3[0], vols, vmsk, jax.random.fold_in(key, i))
-        return m["train/loss"]
-
-    first, loss = _steps(seg3d)
-    check(math.isfinite(float(loss)), f"seg3d loss {loss}")
-    out["seg3d"] = {"compile_s": first, "loss": float(loss)}
-
-    # predict: the serving function (uint8 in, mask out), batch 256 at 224²
-    ptask = SegmentationTask(arch="resnet18", n_classes=1, in_channels=1, learning_rate=1.0,
-                             warmup_epochs=0, max_epochs=1, steps_per_epoch=1,
-                             dtype=jnp.bfloat16)
-    pstate = ptask.init(key, (2, sz.seg_hw, sz.seg_hw, 1))
-    predict = jax.jit(make_predict_fn(
-        ptask, {"params": pstate.params, "batch_stats": pstate.batch_stats}, 0.2089, 0.2109))
-    pshape = (sz.predict_batch, sz.seg_hw, sz.seg_hw, 1)
-    pimgs = jnp.asarray(rng.integers(0, 256, size=pshape, dtype=np.uint8))
-    first, masks = _steps(lambda i: predict(pimgs))
+    predict, _, _, imgs = bench.predict_case(mesh)
+    first, masks = _steps(lambda i: predict(imgs))
     masks = np.asarray(masks)
-    check(masks.shape == pshape and set(np.unique(masks)) <= {0, 1}, f"predict masks {masks.shape}")
+    check(masks.shape == imgs.shape and set(np.unique(masks)) <= {0, 1}, f"predict masks {masks.shape}")
     out["predict"] = {"compile_s": first}
 
-    # predict3d: fused sliding window over the default 12-window volume
-    task3p = Segmentation3DTask(features=sz.features3d, learning_rate=1.0,
-                                warmup_epochs=0, max_epochs=1, steps_per_epoch=1,
-                                dtype=jnp.bfloat16)
-    s3 = task3p.init(key, (1, *sz.crop3d, 1))
-    variables = {"params": s3.params}
-    if s3.batch_stats:
-        variables["batch_stats"] = s3.batch_stats
-    window_fn = jax.jit(lambda w: task3p.model.apply(variables, w, train=False))
-    volume = jnp.asarray(rng.random((*sz.volume, 1)).astype(np.float32))
-    run_fused = make_fused_predictor_3d(window_fn, volume.shape, window=sz.crop3d,
-                                        batch_windows=8)
-    first, logits = _steps(lambda i: run_fused(volume))
+    run3d = bench.predict3d_case()
+    first, logits = _steps(lambda i: run3d())
     logits = np.asarray(logits)
-    check(logits.shape[:3] == sz.volume and np.isfinite(logits).all(), f"predict3d logits {logits.shape}")
+    check(logits.shape[:3] == bench.VOLUME and np.isfinite(logits).all(),
+          f"predict3d logits {logits.shape}")
     out["predict3d"] = {"compile_s": first}
     log("paths: " + ", ".join(
         f"{k} first call {v['compile_s']:.1f} s" + (f" loss {v['loss']!r}" if "loss" in v else "")
@@ -406,26 +320,45 @@ def phase_card_tests() -> dict:
     return outcomes.counts
 
 
-def _param_norm(state) -> float:
+def _flat_params(state) -> np.ndarray:
     import jax
-    import jax.numpy as jnp
 
-    return float(jnp.sqrt(sum(jnp.sum(jnp.square(x.astype(jnp.float32)))
-                              for x in jax.tree.leaves(state.params))))
+    return np.concatenate([np.asarray(x, np.float64).ravel() for x in jax.tree.leaves(state.params)])
 
 
-def sharded_parity(devices, small: bool = False) -> list:
-    """Each sharded training step against the same seeded step on one device,
-    in float32 under ``jax.default_matmul_precision("highest")``. Returns
-    ``(tag, loss_sharded, loss_one, norm_sharded, norm_one, rtol)`` rows.
+def _one_step(train_step, state, *inputs, loss_key: str = "train/loss"):
+    """Loss and parameter change (flattened, float64) of one training step."""
+    p0 = _flat_params(state)  # read first: the step donates ``state``
+    state, m = train_step(state, *inputs)
+    return float(m[loss_key]), _flat_params(state) - p0
+
+
+# Parity tolerances, relative, in f32 under "highest". The loss is the
+# forward pass (sync BatchNorm statistics included); the parameter change of
+# the one step, compared as a vector, is where a missing or partial gradient
+# all-reduce shows. LARS scales each layer's update to a fixed share of its
+# weights, so the change's norm alone would not see one. The first step from
+# a random init magnifies rounding: on four CPU devices at reduced widths the
+# change differs by up to 9e-3 between layouts (7e-3 merely from reordering
+# the batch on one device), while gradients taken from a quarter of the batch
+# (one replica's, as with no all-reduce) move it by 0.77 to 0.97.
+LOSS_RTOL = 2e-4
+DELTA_RTOL = 0.1
+
+
+def sharded_parity(devices) -> list:
+    """One training step of each sharded layout against the same seeded step
+    on one device, at the flagship and seg3d widths, with the learning rate
+    above 0 at step 0. Returns ``(tag, loss_sharded, loss_one,
+    change_sharded, change_one)`` rows.
 
     The mesh follows the algorithm alone (the cards are joined all to all):
-    ``data`` over all devices, or ``data`` × ``space`` / ``model`` of 2 × 2.
-    ``small`` shrinks images and widths for a rehearsal on CPU devices."""
+    ``data`` over all devices, or ``data`` × ``space`` / ``model`` of 2 × 2."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    import bench
     from medical_image_segmentation_tpu.ops.augment import BYOL_VIEW1, BYOL_VIEW2, two_view_augment
     from medical_image_segmentation_tpu.parallel import byol_tp_shardings, data_sharding, make_mesh, shard_batch
     from medical_image_segmentation_tpu.parallel.mesh import spatial_sharding
@@ -436,60 +369,50 @@ def sharded_parity(devices, small: bool = False) -> list:
     check(n == 4, f"the parity cases are laid out for 4 devices, got {n}")
     one = make_mesh(devices[:1])
     rng = np.random.default_rng(SEED)
-    hidden, proj = (256, 64) if small else (4096, 256)
-    batch, raw_hw, view_hw = (8, 64, 32) if small else (1024, 256, 112)
-    seg_hw = 64 if small else 256
-    feats3d, crop3d = ((8, 16, 32), (8, 16, 16)) if small else ((32, 64, 128, 256), (32, 64, 64))
-    # f32 under "highest": a dropped gradient all-reduce or per-shard
-    # BatchNorm moves these far more than reduction order and per-shape
-    # convolution algorithms do
-    rtol = 2e-4
+    view_hw, seg_hw, hidden = bench.CROP, RAW_HW, 4096
     rows = []
 
     def replicate(state, mesh):
         return jax.device_put(state, NamedSharding(mesh, P()))
 
     with jax.default_matmul_precision("highest"):
-        task = BYOLTask(arch="resnet18", in_channels=1, hidden_dim=hidden, proj_dim=proj,
-                        num_classes=10, total_steps=100, dtype=jnp.float32)
-        raw = rng.integers(0, 256, size=(batch, raw_hw, raw_hw, 1), dtype=np.uint8)
-        labels = rng.integers(0, 10, size=(batch,)).astype(np.int32)
+        task = BYOLTask(arch="resnet18", in_channels=1, hidden_dim=hidden, proj_dim=256,
+                        num_classes=10, total_steps=100, warmup_epochs=0, dtype=jnp.float32)
+        raw = rng.integers(0, 256, size=(BATCH, RAW_HW, RAW_HW, 1), dtype=np.uint8)
+        labels = rng.integers(0, 10, size=(BATCH,)).astype(np.int32)
         cfgs = [dataclasses.replace(c, out_size=(view_hw, view_hw)) for c in (BYOL_VIEW1, BYOL_VIEW2)]
 
         def dp(mesh):
             state = replicate(task.init(jax.random.key(0), (2, view_hw, view_hw, 1)), mesh)
             v1, v2 = two_view_augment(jax.random.key(1), shard_batch(mesh, raw), *cfgs,
                                       dtype=jnp.float32)
-            state, m = task.train_step(state, v1, v2, shard_batch(mesh, labels))
-            return float(m["loss"]), _param_norm(state)
+            return _one_step(task.train_step, state, v1, v2, shard_batch(mesh, labels), loss_key="loss")
 
-        rows.append((f"dp({n}) BYOL resnet18 batch {batch}", *_pair(dp(make_mesh(devices)), dp(one)), rtol))
+        rows.append((f"dp({n}) BYOL resnet18 batch {BATCH}", *_pair(dp(make_mesh(devices)), dp(one))))
 
-        seg = SegmentationTask(arch="resnet18", dtype=jnp.float32)
+        seg = SegmentationTask(arch="resnet18", warmup_epochs=0, dtype=jnp.float32)
         s_imgs = rng.normal(size=(4, seg_hw, seg_hw, 1)).astype(np.float32)
         s_msks = (rng.random((4, seg_hw, seg_hw, 1)) > 0.5).astype(np.float32)
 
         def sp(mesh, sharded):
             state = replicate(seg.init(jax.random.key(2), (2, seg_hw, seg_hw, 1)), mesh)
             put = (lambda a: jax.device_put(a, spatial_sharding(mesh))) if sharded else jnp.asarray
-            state, m = seg.train_step(state, put(s_imgs), put(s_msks))
-            return float(m["train/loss"]), _param_norm(state)
+            return _one_step(seg.train_step, state, put(s_imgs), put(s_msks))
 
         ds = make_mesh(devices, axis_names=("data", "space"), axis_sizes=(2, 2))
-        rows.append((f"dp+space(2x2) U-Net {seg_hw}²", *_pair(sp(ds, True), sp(one, False)), rtol))
+        rows.append((f"dp+space(2x2) U-Net {seg_hw}²", *_pair(sp(ds, True), sp(one, False))))
 
-        seg3 = Segmentation3DTask(features=feats3d, dtype=jnp.float32)
-        v_imgs = rng.normal(size=(4, *crop3d, 1)).astype(np.float32)
-        v_msks = (rng.random((4, *crop3d, 1)) > 0.7).astype(np.float32)
+        seg3 = Segmentation3DTask(features=bench.FEATURES3D, warmup_epochs=0, dtype=jnp.float32)
+        v_imgs = rng.normal(size=(4, *bench.CROP3D, 1)).astype(np.float32)
+        v_msks = (rng.random((4, *bench.CROP3D, 1)) > 0.7).astype(np.float32)
 
         def sp3(mesh, sharded):
-            state = replicate(seg3.init(jax.random.key(4), (2, *crop3d, 1)), mesh)
+            state = replicate(seg3.init(jax.random.key(4), (2, *bench.CROP3D, 1)), mesh)
             put = (lambda a: jax.device_put(a, spatial_sharding(mesh, ndim=5))) if sharded else jnp.asarray
-            state, m = seg3.train_step(state, put(v_imgs), put(v_msks))
-            return float(m["train/loss"]), _param_norm(state)
+            return _one_step(seg3.train_step, state, put(v_imgs), put(v_msks))
 
-        rows.append((f"dp+space3d(2x2) UNet3D {feats3d} crop {crop3d}",
-                     *_pair(sp3(ds, True), sp3(one, False)), rtol))
+        rows.append((f"dp+space3d(2x2) UNet3D {bench.FEATURES3D} crop {bench.CROP3D}",
+                     *_pair(sp3(ds, True), sp3(one, False))))
 
         t_v1 = rng.normal(size=(16, view_hw, view_hw, 1)).astype(np.float32)
         t_v2 = rng.normal(size=(16, view_hw, view_hw, 1)).astype(np.float32)
@@ -501,11 +424,10 @@ def sharded_parity(devices, small: bool = False) -> list:
                 a, b = (jax.device_put(jnp.asarray(v), data_sharding(mesh, 4)) for v in (t_v1, t_v2))
             else:
                 state, a, b = replicate(state, mesh), jnp.asarray(t_v1), jnp.asarray(t_v2)
-            state, m = task.train_step(state, a, b)
-            return float(m["loss"]), _param_norm(state)
+            return _one_step(task.train_step, state, a, b, loss_key="loss")
 
         dm = make_mesh(devices, axis_names=("data", "model"), axis_sizes=(2, 2))
-        rows.append((f"dp+tp(2x2) BYOL heads {hidden}", *_pair(tp(dm, True), tp(one, False)), rtol))
+        rows.append((f"dp+tp(2x2) BYOL heads {hidden}", *_pair(tp(dm, True), tp(one, False))))
     return rows
 
 
@@ -514,14 +436,18 @@ def _pair(sharded, single):
 
 
 def check_parity(rows) -> list:
-    """Print each row; return the tags that miss their tolerance."""
+    """Print each row; return the tags that miss a tolerance or whose step
+    left the parameters where they were."""
     failed = []
-    for tag, loss_n, loss_1, norm_n, norm_1, rtol in rows:
+    for tag, loss_n, loss_1, change_n, change_1 in rows:
         dl = abs(loss_n - loss_1) / max(abs(loss_1), 1e-12)
-        dn = abs(norm_n - norm_1) / max(abs(norm_1), 1e-12)
-        ok = math.isfinite(loss_n) and dl <= rtol and dn <= rtol
-        log(f"parity {tag}: loss {loss_n!r} vs {loss_1!r} (Δrel {dl:.2e}), |params| {norm_n!r} "
-            f"vs {norm_1!r} (Δrel {dn:.2e}); tolerance {rtol:g} — {'ok' if ok else 'FAIL'}")
+        size = float(np.linalg.norm(change_1))
+        dc = float(np.linalg.norm(change_n - change_1)) / max(size, 1e-30)
+        ok = math.isfinite(loss_n) and size > 0 and dl <= LOSS_RTOL and dc <= DELTA_RTOL
+        log(f"parity {tag}: loss {loss_n!r} vs {loss_1!r} (Δrel {dl:.2e}, tolerance {LOSS_RTOL:g}); "
+            f"parameter change |Δp| {float(np.linalg.norm(change_n))!r} vs {size!r}, "
+            f"|Δp_sharded - Δp_one| / |Δp_one| = {dc:.2e} (tolerance {DELTA_RTOL:g}) — "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(tag)
     return failed

@@ -101,9 +101,13 @@ def restore_checkpoint(path: str, target: Optional[Any] = None) -> Any:
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
+    """The highest step under ``ckpt_dir`` whose ``state.npz`` is complete. A
+    save cut short (the process killed mid-write) leaves a step directory
+    without one, and the step before it is the one to resume from."""
     if not os.path.isdir(ckpt_dir):
         return None
-    steps = [int(d) for d in os.listdir(ckpt_dir) if d.isdigit()]
+    steps = [int(d) for d in os.listdir(ckpt_dir)
+             if d.isdigit() and os.path.isfile(os.path.join(ckpt_dir, d, _STATE_FILE))]
     return max(steps, default=None)
 
 

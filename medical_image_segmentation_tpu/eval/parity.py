@@ -273,10 +273,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.fp32:
         ssl_cmd.append("--fp32")
     stages.run("pretrain", lambda: _check(train_ssl.main(ssl_cmd), "train_ssl"))
-    steps = [d for d in os.listdir(ssl_ckpt_dir) if d.isdigit()]
-    if not steps:
+    from medical_image_segmentation_tpu.core.checkpoint import latest_step
+
+    step = latest_step(ssl_ckpt_dir)
+    if step is None:
         raise SystemExit("parity: SSL pretrain produced no checkpoint")
-    ssl_ckpt = os.path.join(ssl_ckpt_dir, max(steps, key=int))
+    ssl_ckpt = os.path.join(ssl_ckpt_dir, str(step))
     report["ssl"] = {"checkpoint": ssl_ckpt,
                      **_final_metric(os.path.join(ws, "logs_ssl"), ["train/loss"])}
 

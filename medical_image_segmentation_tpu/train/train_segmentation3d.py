@@ -123,6 +123,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         data_shards = ndev // args.space_shards
         if args.crop_size[0] % args.space_shards:
             raise SystemExit("--crop_size depth must be divisible by --space_shards")
+        # XLA's spatial partitioning computes a 3³ convolution's input
+        # gradient wrongly when a shard holds a single slice (the forward
+        # pass stays right), so the bottleneck keeps two slices per shard
+        bottom = args.crop_size[0] // 2 ** (len(args.features) - 1)
+        if bottom % args.space_shards or bottom // args.space_shards < 2:
+            raise SystemExit(
+                f"--space_shards {args.space_shards} splits the bottleneck's depth {bottom} "
+                f"(crop depth / 2^{len(args.features) - 1}) into fewer than 2 slices per "
+                "shard, where sharded convolution gradients are wrong; use a deeper "
+                "--crop_size or fewer shards")
     else:
         mesh = make_mesh()
         data_shards = ndev

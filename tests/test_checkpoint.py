@@ -74,3 +74,19 @@ def test_restore_onto_mesh_shardings(tmp_path):
     assert len(restored["w"].addressable_shards) == 8
     assert restored["w"].addressable_shards[1].data.shape == (2, 4)
     np.testing.assert_array_equal(np.asarray(restored["w"]), np.asarray(big["w"]))
+
+
+def test_resume_skips_a_save_cut_short(tmp_path):
+    """A process killed while writing step 3 leaves ``3/.state.npz.tmp`` and
+    no ``state.npz``: resuming picks step 2, and saving step 3 again works."""
+    root = str(tmp_path / "ck")
+    for step in (1, 2):
+        save_checkpoint(root, _state(), step)
+    os.makedirs(os.path.join(root, "3"))
+    with open(os.path.join(root, "3", ".state.npz.tmp"), "wb") as f:
+        f.write(b"PK\x03\x04 cut short")
+    assert latest_step(root) == 2
+    assert resolve_checkpoint_path(root) == os.path.join(root, "2")
+    save_checkpoint(root, _state(), 3)
+    assert latest_step(root) == 3
+    assert int(restore_checkpoint(os.path.join(root, "3"))["step"]) == 7

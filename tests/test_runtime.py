@@ -8,6 +8,7 @@ import subprocess
 import sys
 import textwrap
 
+import jax
 import pytest
 
 from medical_image_segmentation_tpu.core import runtime
@@ -84,6 +85,20 @@ class TestDeviceCheck:
         assert '"ok"' not in capsys.readouterr().out
 
 
+def test_parity_check_sees_the_parameter_change():
+    """``check_parity`` passes a step whose change matches to rounding, and
+    fails one whose change points elsewhere or that moved nothing."""
+    import numpy as np
+
+    smoke = _load("chip_smoke")
+    change = np.random.default_rng(0).normal(size=1000)
+    rows = [("same", 1.0, 1.0, change * (1 + 1e-6), change),
+            ("other direction", 1.0, 1.0, np.roll(change, 1), change),
+            ("no step", 1.0, 1.0, np.zeros(1000), np.zeros(1000)),
+            ("loss", 1.1, 1.0, change, change)]
+    assert smoke.check_parity(rows) == ["other direction", "no step", "loss"]
+
+
 class TestPeaks:
     def test_h100_peak_by_device_kind(self):
         bench = _load("bench")
@@ -95,7 +110,7 @@ class TestPeaks:
         with pytest.raises(KeyError, match="Quantum Abacus"):
             bench.peak_flops("Quantum Abacus")
         with pytest.raises(KeyError):
-            bench._peak_flops_per_chip()  # the CPU test mesh has no peak
+            bench.peak_flops(jax.devices()[0].device_kind)  # the CPU test mesh has no peak
 
 
 def test_local_device_ids_from_local_rank(monkeypatch):

@@ -269,6 +269,35 @@ def test_seg3d_spatial_sharding_parity():
     assert abs(norm_n - norm_1) / max(abs(norm_1), 1e-12) < 2e-4
 
 
+@pytest.mark.parametrize("slices_per_shard", [2, 4])
+def test_depth_sharded_conv_gradient_matches(slices_per_shard):
+    """A 3³ convolution's input and kernel gradients with the depth split
+    over two shards match the unsharded ones, down to the two slices per
+    shard that ``train_segmentation3d --space_shards`` keeps at the
+    bottleneck (with one slice per shard XLA's input gradient is wrong)."""
+    from medical_image_segmentation_tpu.parallel import make_mesh, replicated
+    from medical_image_segmentation_tpu.parallel.mesh import spatial_sharding
+
+    mesh = make_mesh(jax.devices()[:4], axis_names=("data", "space"), axis_sizes=(2, 2))
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4, 2 * slices_per_shard, 4, 4, 8)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, 8, 8)) * 0.1).astype(np.float32)
+    c = rng.normal(size=x.shape).astype(np.float32)
+
+    def loss(w, x, c):
+        y = jax.lax.conv_general_dilated(x, w, (1, 1, 1), [(1, 1)] * 3,
+                                         dimension_numbers=("NDHWC", "DHWIO", "NDHWC"),
+                                         precision="highest")
+        return jnp.sum(y * c)
+
+    grad = jax.jit(jax.grad(loss, argnums=(0, 1)))
+    want = grad(w, x, c)
+    sh = spatial_sharding(mesh, ndim=5)
+    got = grad(jax.device_put(w, replicated(mesh)), jax.device_put(x, sh), jax.device_put(c, sh))
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(r), rtol=1e-5, atol=1e-5)
+
+
 class TestPredict3D:
     def test_cli_serves_masks_from_checkpoint(self, tmp_path):
         """Train briefly, checkpoint, then serve masks for NIfTI volumes via
@@ -618,6 +647,19 @@ class TestZeroStepRefusal:
                 "--volume_size", "8", "16", "16", "--crop_size", "8", "16", "16",
                 "--batch_size", "8", "--max_epochs", "1", "--features", "4", "8",
                 "--fp32", "--log_dir", str(tmp_path / "logs"),
+                "--checkpoint_dir", str(tmp_path / "ckpt"),
+            ])
+
+    def test_seg3d_refuses_one_bottleneck_slice_per_space_shard(self, tmp_path):
+        from medical_image_segmentation_tpu.train import train_segmentation3d
+
+        img_d, msk_d = self._volumes(tmp_path, 2)
+        with pytest.raises(SystemExit, match="fewer than 2 slices per shard"):
+            train_segmentation3d.main([
+                "--images_dir", str(img_d), "--masks_dir", str(msk_d),
+                "--volume_size", "8", "16", "16", "--crop_size", "8", "16", "16",
+                "--batch_size", "2", "--max_epochs", "1", "--features", "4", "8", "16",
+                "--space_shards", "2", "--fp32", "--log_dir", str(tmp_path / "logs"),
                 "--checkpoint_dir", str(tmp_path / "ckpt"),
             ])
 
